@@ -1,7 +1,7 @@
 """Command-line interface of the port — the br-compatible parser of
 ``br_tpu.cli`` plus ``--device``.
 
-    python -m br_tpu_torch.cli -i reads.fa -o out.fa -c one \\
+    python -m br_tpu_torch.cli -i reads.fa -o out.fa \\
         fasta -i reads.fa -k 13 -a 2
 
 Global flags + one set-construction subcommand:
@@ -18,11 +18,11 @@ Abundance selection (count/fasta) is a nested subcommand, like the
 reference: ``first-minimum`` | ``rarefaction PERCENT`` |
 ``percent-most PERCENT`` | ``percent-least PERCENT``; or pass ``-a``.
 
-The device path runs the ``one`` strategy only for now: any other ``-c``
-value, and the default five-strategy chain, are refused with a message
-(ROADMAP A3).  ``large-kmer`` (k > 17, ROADMAP A7) is refused too.
-``--device`` is ``cuda`` (default) or ``cpu`` (the kernels' plain
-PyTorch versions).
+``-c`` names the strategies of the chain, in order, from ``one``,
+``two``, ``graph``, ``greedy`` and ``gap-size``; without ``-c`` the chain
+is br's default, all five in that order.  ``large-kmer`` (k > 17, ROADMAP
+A7) is refused.  ``--device`` is ``cuda`` (default) or ``cpu`` (the
+kernels' plain PyTorch versions).
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "mirroring the reference's inverted flag)")
     p.add_argument("-c", "--corrections", action="append",
                    choices=METHOD_CHOICES,
-                   help="correction method chain (only 'one' is ported)")
+                   help="correction method, repeatable (default: the "
+                   "chain one, two, graph, greedy, gap-size)")
     p.add_argument("-C", "--confirm", type=int, default=DEFAULT_CONFIRM,
                    help="number of kmers required to validate a correction")
     p.add_argument("-M", "--max-search", type=int, default=DEFAULT_MAX_SEARCH,
@@ -205,12 +206,6 @@ def main(argv=None) -> int:
     configure_logging(args.quiet, args.verbosity)
 
     corrections = args.corrections or list(DEFAULT_CORRECTIONS)
-    unported = [c for c in corrections if c != "one"]
-    if unported:
-        print(f"error: br_tpu_torch runs the 'one' strategy only for now "
-              f"(ROADMAP A3); got {', '.join(unported)} — pass -c one",
-              file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda was asked for and CUDA is not "
               "available; pass --device cpu to run on the CPU",

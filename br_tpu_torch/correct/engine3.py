@@ -3,28 +3,29 @@
 
 Every read of a chunk sits in its own slot of one flat buffer of 2-bit
 codes, ``(rstart, rlen)`` per slot.  A pass of one strategy over a chunk
-is four kernels, each with a plain PyTorch version for CPU tensors:
+is three kernels, each with a plain PyTorch version for CPU tensors:
 
 1. K1 ``dense_probe`` (correct/probe.py): k-mers, solid bits, the V/T
    masks and the site list;
-2. K2 ``one_sites`` (correct/sites.py): every site's chain of attempts
-   and its repair records;
+2. the strategy's site kernel: every site's chain of attempts and its
+   repair records: K2 ``one_sites`` (correct/sites.py), K5 ``two_sites``
+   (correct/two.py), K6 ``walk_sites`` for ``graph`` and ``gap-size``
+   (correct/walk.py), K7 ``greedy_sites`` (correct/greedy.py);
 3. K3 ``chain_splice`` (correct/splice.py): the visited chain of every
-   read and its spliced output;
-4. between the two directions of a chain, K4 ``reverse_slots``
-   (correct/reverse.py).
+   read and its spliced output.
+
+Between the two directions of a chain, K4 ``reverse_slots``
+(correct/reverse.py) reverses every read in its slot.
 
 A pass never synchronises with the host.  Engineered bounds (the site
 capacity NS, SLOTS records per site, the record capacity NR, the slot's
-headroom) raise a per-read cap.  Capped reads retry once on a sibling
-corrector with smaller chunks and the wide profile's slot headroom, as
-the JAX package's do (engine3.py:2235-2250): a read capped because its
-chunk's sites overflowed NS meets fewer neighbours there.  Reads capped
-again are corrected on the host by the oracle, so the output is always
-the reference's.
-
-This slice ports the ``one`` strategy; the other four strategies raise
-``NotImplementedError`` until ROADMAP A3 brings them.
+headroom, the walks' walk_max and T3_CAP) raise a per-read cap.  Capped
+reads retry once on a sibling corrector with the wide walk profile
+(walk_max = 2040), its slot headroom and smaller chunks, as the JAX
+package's do (engine3.py:2112-2122, :2235-2250): long walk accepts and
+long gap fills fit there, and a read capped because its chunk's sites
+overflowed NS meets fewer neighbours.  Reads capped again are corrected
+on the host by the oracle, so the output is always the reference's.
 """
 
 from __future__ import annotations
@@ -33,27 +34,23 @@ import numpy as np
 import torch
 
 from br_tpu_torch.correct import device_codec as dc
-from br_tpu_torch.correct.layout import MAX_R, WIDE_WALK_MAX, site_capacity
+from br_tpu_torch.correct.greedy import check_ms, greedy_sites
+from br_tpu_torch.correct.layout import (
+    MAX_R, WALK_MAX, WIDE_WALK_MAX, site_capacity, walk_profile)
 from br_tpu_torch.correct.probe import dense_probe
 from br_tpu_torch.correct.reverse import reverse_slots
 from br_tpu_torch.correct.sites import one_sites
 from br_tpu_torch.correct.splice import chain_splice
+from br_tpu_torch.correct.two import two_sites
+from br_tpu_torch.correct.walk import walk_sites
 
-#: strategies with a ported pass; ROADMAP item per strategy still to come.
-PORTED = ("one",)
-_TODO = {"two": "A3 (B3b)", "graph": "A3 (B3c)", "gap-size": "A3 (B3e)",
-         "greedy": "A3 (B3d)"}
+#: strategies with a ported pass: all five of br's.
+PORTED = ("one", "two", "graph", "greedy", "gap-size")
 
 
 def check_strategy(strategy: str) -> None:
-    if strategy in PORTED:
-        return
-    item = _TODO.get(strategy)
-    if item is None:
+    if strategy not in PORTED:
         raise ValueError(f"unknown correction strategy {strategy!r}")
-    raise NotImplementedError(
-        f"strategy {strategy!r} is not ported to br_tpu_torch yet "
-        f"(ROADMAP {item}); this slice runs 'one' only")
 
 
 def resolve_device(device) -> torch.device:
@@ -77,7 +74,7 @@ def resolve_device(device) -> torch.device:
 
 
 def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
-                  CHUNK: int, R: int):
+                  CHUNK: int, R: int, walk_max: int = WALK_MAX):
     """One pass of ``strategy`` over a chunk: a callable
     (table, codes (CHUNK,) u8, rstart (R,) i32, rlen (R,) i32) ->
     (out codes (CHUNK,) u8, out_lens (R,) i32, cap (R,) bool,
@@ -87,20 +84,34 @@ def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
     the distance to the next slot's start (the last: to CHUNK).  aux =
     (sites, capped sites by reason: overflow, attempt, rounds, visited
     sites, applied records, capped reads, raw site count).  Output codes
-    past out_len are 0.  ``ms`` and ``nb`` belong to strategies not
-    ported yet (greedy)."""
+    past out_len are 0.  ``ms`` and ``nb`` are greedy's search length and
+    validation count; ``walk_max`` bounds the walks of ``graph`` and
+    ``gap-size`` (the wide profile: WIDE_WALK_MAX)."""
     check_strategy(strategy)
     dc.check_k(k)
+    walk_profile(walk_max)
+    if strategy == "greedy":
+        check_ms(ms, nb)
     if CHUNK % 4 or not 1 <= R <= MAX_R:
         raise ValueError(f"CHUNK must be a multiple of 4 and 1 <= R <= "
                          f"{MAX_R}; got CHUNK={CHUNK}, R={R}")
     NS = site_capacity(CHUNK)
     NR = NS
 
+    def site_pass(table, codes, d, rstart, rlen):
+        args = (table, codes, d.kmers, d.s_pos, d.n_sites, rstart, rlen, k)
+        if strategy == "one":
+            return one_sites(*args, c)
+        if strategy == "two":
+            return two_sites(*args, c)
+        if strategy == "greedy":
+            return greedy_sites(*args, ms, nb)
+        return walk_sites(table, codes, d.kmers, d.V, d.s_pos, d.n_sites,
+                          rstart, rlen, k, c, strategy, walk_max)
+
     def passfn(table, codes, rstart, rlen):
         d = dense_probe(table, codes, rstart, rlen, k, NS)
-        s = one_sites(table, codes, d.kmers, d.s_pos, d.n_sites, rstart,
-                      rlen, k, c)
+        s = site_pass(table, codes, d, rstart, rlen)
         sp = chain_splice(codes, rstart, rlen, d.s_pos, d.n_sites, s,
                           d.cap_read)
         # the visited-record capacity NR spans all reads (records are
@@ -127,8 +138,8 @@ _DECODE = np.frombuffer(b"ACTG", dtype=np.uint8)
 class Torch3Corrector:
     """Flat-packed batched corrector on one device (port of
     ``Tpu3Corrector``): same contract, bit-exact output; capped reads
-    retry once on the ``wide`` sibling, and impure, too-long and
-    still-capped reads are corrected by the host oracle."""
+    retry once on the sibling with the wide walk profile, and impure,
+    too-long and still-capped reads are corrected by the host oracle."""
 
     #: flat positions per chunk
     CHUNK = 1 << 20
@@ -138,7 +149,7 @@ class Torch3Corrector:
     def __init__(self, valid_kmer, corrections, confirm: int,
                  max_search: int, chunk: int | None = None,
                  nreads: int | None = None, device=None, table=None,
-                 wide: bool = False):
+                 walk_max: int = WALK_MAX):
         from br_tpu_torch.set.solid import SolidSet
 
         if not isinstance(valid_kmer, SolidSet):
@@ -159,11 +170,13 @@ class Torch3Corrector:
             self.R = nreads
         self.table = (valid_kmer.device_words(self.device)
                       if table is None else table)
+        #: the walk bound of this corrector's passes; a corrector on the
+        #: default profile retries capped reads on a wide sibling
+        self.walk_max = walk_max
         self._passes = {s: make_pass3_fn(self.k, s, self.c, self.ms,
-                                         self.c, self.CHUNK, self.R)
+                                         self.c, self.CHUNK, self.R,
+                                         walk_max=walk_max)
                         for s in set(self.corrections)}
-        #: the retry sibling (wide slot headroom, no retry of its own)
-        self.wide = wide
         self._wide = None
         self._oracle = None
         self.last_stats: dict = {}
@@ -172,10 +185,11 @@ class Torch3Corrector:
     # -- planning (host) -----------------------------------------------------
 
     def _slot_len(self, n: int) -> int:
-        # net-insertion headroom; overflow -> cap -> retry -> host oracle
+        # net-insertion headroom; overflow -> cap -> retry -> host oracle.
+        # A wide profile budgets a full walk emit (engine3.py:2064-2072).
         slack = max(64, n // 8)
-        if self.wide:
-            slack = max(slack, WIDE_WALK_MAX + 64)
+        if self.walk_max > WALK_MAX:
+            slack = max(slack, self.walk_max + 64)
         s = n + slack
         return s + (-s) % 32
 
@@ -220,13 +234,15 @@ class Torch3Corrector:
         return packed, rstart, rlen
 
     def _get_wide(self):
-        """The retry sibling (engine3.py:2112-2122): chunks of at most
-        2^18 positions and 32 slots, sharing the device bitfield."""
+        """The retry sibling (engine3.py:2112-2122): the wide walk
+        profile, chunks of at most 2^18 positions and 32 slots, sharing
+        the device bitfield."""
         if self._wide is None:
             self._wide = Torch3Corrector(
                 self.valid_kmer, self.corrections, self.c, self.ms,
                 chunk=min(self.CHUNK, 1 << 18), nreads=min(self.R, 32),
-                device=self.device, table=self.table, wide=True)
+                device=self.device, table=self.table,
+                walk_max=WIDE_WALK_MAX)
         return self._wide
 
     # -- the batch interface ---------------------------------------------------
@@ -293,7 +309,8 @@ class Torch3Corrector:
         host = sorted(impure | too_long)
         todo = host  # the reads this corrector's oracle corrects
         n_retried = 0
-        if capped and not self.wide:
+        # only a batch on the default profile retries (engine3.py:2242)
+        if capped and self.walk_max == WALK_MAX:
             wide = self._get_wide()
             fixed = wide.correct_batch([seqs[i] for i in capped], two_side)
             for i, s in zip(capped, fixed):

@@ -1,17 +1,20 @@
-"""K2 ``one_sites``: the attempt sites of a ``one`` pass.
+"""The attempt sites of a pass: what the site kernels share, and K2
+``one_sites``.
 
-Port of the site-block queue of br_tpu/correct/engine3.py:1592-1708 for
-strategy ``one``, with ``_alt_info32_arr`` (:966), ``make_one_attempt32_arr``
-(:300) and ``dirty_sim`` (:1526).  Every listed site runs its whole chain
-of nested attempts: the exactly-one-alternative gate, the One attempt
-(I/S/D with the score and one_more rules), a repair record per applied
-attempt (at most SLOTS, beyond that the site caps with CAP_OVERFLOW), and
-the scan machine for k steps past the last repair, which either finds a
-nested site (attempt again there), reaches the read end, or hands over to
-the next listed site (the successor).
+Port of the site-block queue of br_tpu/correct/engine3.py:1592-1708 with
+``_alt_info32_arr`` (:966) and ``dirty_sim`` (:1526).  Every listed site
+runs its whole chain of nested attempts: the exactly-one-alternative gate,
+the strategy's attempt, a repair record per applied attempt (at most
+SLOTS, beyond that the site caps with CAP_OVERFLOW; an attempt that hits
+an engineered bound caps it with CAP_ATTEMPT), and the scan machine for k
+steps past the last repair, which either finds a nested site (attempt
+again there), reaches the read end, or hands over to the next listed site
+(the successor).  The CUDA side of this is ``csrc/sites_common.cuh``; the
+plain side is ``run_sites_plain``, which every site module's plain
+version drives with its own attempt.
 
-``one_sites`` launches ``csrc/one_sites.cu`` for CUDA tensors and runs
-``one_sites_plain`` for CPU tensors.
+K2 ``one_sites`` (the One attempt, :300) launches ``csrc/one_sites.cu``
+for CUDA tensors and runs ``one_sites_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ import torch
 from br_tpu_torch import kernels
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.layout import (
-    BIG, CAP_OVERFLOW, DONE_PURE, DONE_END, PENDING, SLOTS, check_slots)
+    BIG, CAP_ATTEMPT, CAP_OVERFLOW, DONE_END, DONE_PURE, PENDING, SLOTS,
+    check_slots)
 
-#: sites per K2 block (K2_THREADS in one_sites.cu).
+#: sites per site-kernel block (BR_SITE_THREADS in sites_common.cuh).
 BLOCK = 256
 
 
@@ -35,12 +39,23 @@ class Sites(NamedTuple):
     rec_p: torch.Tensor  # (NS*SLOTS,) int32 record position, BIG if unused
     rec_c: torch.Tensor  # (NS*SLOTS,) int32 emitted base count
     rec_s: torch.Tensor  # (NS*SLOTS,) int32 input positions consumed
-    rec_e: torch.Tensor  # (NS*SLOTS,) int32 emitted bases, 2 bits each
+    rec_e: torch.Tensor  # (NS*SLOTS, EW) int32 emitted bases, 16 per word
 
 
-def one_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
-              c: int) -> Sites:
-    """Run every listed site of a ``one`` pass (see the module docstring)."""
+class Attempt(NamedTuple):
+    """One attempt over a set of lanes (AttemptOut3, engine3.py:220)."""
+
+    ok: torch.Tensor        # bool, the repair applies
+    cap: torch.Tensor       # bool, an engineered bound was hit
+    new_kmer: torch.Tensor  # int64 register after the emitted bases
+    consumed: torch.Tensor  # int64 input positions skipped
+    cnt: torch.Tensor       # int64 emitted bases
+    emit: torch.Tensor      # (lanes, EW) int64 emit words
+
+
+def check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen,
+                    k: int) -> None:
+    """What every site kernel's wrapper checks."""
     dc.check_k(k)
     dev = codes.device
     CHUNK = codes.shape[0]
@@ -53,6 +68,43 @@ def one_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
     kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
     dc.check_table(table, k)
     check_slots(rstart)
+
+
+def empty_sites(NS: int, EW: int, dev) -> Sites:
+    """Output buffers of a site kernel (it writes the entries that
+    ``defined`` keeps, and leaves the rest as they are)."""
+    rec = torch.empty((3, NS * SLOTS), dtype=torch.int32, device=dev)
+    return Sites(torch.empty(NS, dtype=torch.int32, device=dev),
+                 torch.empty(NS, dtype=torch.int32, device=dev),
+                 rec[0], rec[1], rec[2],
+                 torch.empty((NS * SLOTS, EW), dtype=torch.int32,
+                             device=dev))
+
+
+def defined(s: Sites) -> Sites:
+    """The entries of a site kernel's output that it writes and K3 reads:
+    succ, s_cap, rec_p, and for each used record (rec_p < BIG) its rec_c,
+    rec_s and first ceil(rec_c / 16) emit words; every other entry 0.  The
+    plain versions write those entries as 0, so a kernel and its plain
+    version are compared through this."""
+    used = s.rec_p < BIG
+    words = torch.arange(s.rec_e.shape[1], device=s.rec_e.device)
+    live = used[:, None] & (words[None, :] * 16 < s.rec_c[:, None])
+    zero = torch.zeros((), dtype=torch.int32, device=s.rec_p.device)
+    return Sites(s.succ, s.s_cap, s.rec_p, torch.where(used, s.rec_c, zero),
+                 torch.where(used, s.rec_s, zero),
+                 torch.where(live, s.rec_e, zero))
+
+
+def as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 words -> the same bits as int32."""
+    return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).int()
+
+
+def one_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
+              c: int) -> Sites:
+    """Run every listed site of a ``one`` pass (see the module docstring)."""
+    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
     if c < 0:
         raise ValueError(f"confirm must be >= 0, got {c}")
     if kernels.on_cuda(codes):
@@ -64,20 +116,74 @@ def one_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
 
 def _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart, rlen,
                     k: int, c: int) -> Sites:
-    NS, dev = s_pos.shape[0], codes.device
-    succ = torch.empty(NS, dtype=torch.int32, device=dev)
-    s_cap = torch.empty(NS, dtype=torch.int32, device=dev)
-    rec = torch.empty((4, NS * SLOTS), dtype=torch.int32, device=dev)
+    NS = s_pos.shape[0]
+    out = empty_sites(NS, 1, codes.device)
     kernels.launch(
         "one_sites", codes, table, kmers, s_pos, n_sites, rstart, rlen,
-        codes.shape[0], rstart.shape[0], k, c, NS, succ, s_cap, *rec)
-    return Sites(succ, s_cap, rec[0], rec[1], rec[2], rec[3])
+        codes.shape[0], rstart.shape[0], k, c, NS, *out)
+    return out
 
 
-def one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
-                    k: int, c: int) -> Sites:
-    """The same function in plain PyTorch ops: all sites advance together,
-    one attempt per round, until no chain is pending."""
+def window(codes3, CHUNK: int):
+    """code_at over int64 codes: positions clipped into the chunk."""
+
+    def code_at(idx):
+        return codes3[idx.clamp(0, CHUNK - 1)]
+
+    return code_at
+
+
+def alt_last(probe, km):
+    """(count, replacement) of the alternative last bases of km."""
+    base = (km >> 2) << 2
+    oks = [probe(base ^ a) for a in range(4)]
+    n = sum(o.long() for o in oks)
+    return n, base ^ sum(a * oks[a].long() for a in range(4))
+
+
+def alt_next(probe, km, k: int):
+    """(count, sum of the bases) of the solid successors of km."""
+    oks = [probe(dc.add_nuc(km, torch.full_like(km, a), k))
+           for a in range(4)]
+    n = sum(o.long() for o in oks)
+    return n, sum(a * oks[a].long() for a in range(4))
+
+
+def one_attempt_plain(probe, code_at, k: int, c: int, ii, corr, lf):
+    """The One attempt over lanes (make_one_attempt32_arr, engine3.py:
+    300): scenarios D (offset 0), S (1), I (2)."""
+    rem = lf - ii
+    corr_ok = probe(corr)
+    keep, more = [], []
+    for off in range(3):
+        km, allv, last = corr, corr_ok, None
+        for s in range(c + 1):
+            km = dc.add_nuc(km, code_at(ii + off + s), k)
+            v = probe(km)
+            if s < c:
+                allv = allv & v
+            else:
+                last = v
+        keep.append((off + c <= rem) & allv)
+        more.append((rem > c + off + 1) & last)
+    nk = sum(x.long() for x in keep)
+    keep2 = [a & b for a, b in zip(keep, more)]
+    nk2 = sum(x.long() for x in keep2)
+    ok = (nk == 1) | ((nk > 1) & (nk2 == 1))
+    sel = [torch.where(nk == 1, a, b) for a, b in zip(keep, keep2)]
+    offset = sel[1].long() + 2 * sel[2].long()
+    return Attempt(ok, torch.zeros_like(ok), corr, offset,
+                   torch.ones_like(offset), (corr & 3)[:, None])
+
+
+def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
+                    k: int, EW: int, attempt) -> Sites:
+    """The site chains in plain PyTorch ops: all sites advance together,
+    one attempt per round, until no chain is pending.
+
+    ``attempt(probe, code_at, ii, rg, corr, lf)`` runs the strategy over
+    the lanes whose gate passed (flat positions ii, registers rg, gated
+    alternatives corr, read ends lf) and returns an ``Attempt``."""
     CHUNK, NS, dev = codes.shape[0], s_pos.shape[0], codes.device
     probe = dc.make_solid_probe_any(table, k)
     succ = torch.full((NS,), NS, dtype=torch.int32, device=dev)
@@ -85,16 +191,12 @@ def one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     rec_p = torch.full((NS * SLOTS,), BIG, dtype=torch.int32, device=dev)
     rec_c = torch.zeros(NS * SLOTS, dtype=torch.int32, device=dev)
     rec_s = torch.zeros(NS * SLOTS, dtype=torch.int32, device=dev)
-    rec_e = torch.zeros(NS * SLOTS, dtype=torch.int32, device=dev)
+    rec_e = torch.zeros((NS * SLOTS, EW), dtype=torch.int32, device=dev)
     n_eff = min(int(n_sites[0]), NS)
     if n_eff == 0:
         return Sites(succ, s_cap, rec_p, rec_c, rec_s, rec_e)
 
-    codes3 = (codes & 3).long()
-
-    def code_at(idx):
-        return codes3[idx.clamp(max=CHUNK - 1)]
-
+    code_at = window((codes & 3).long(), CHUNK)
     sites = s_pos[:n_eff].long()
     rs, rl = rstart.long(), rlen.long()
     rid = torch.searchsorted(rs, sites, right=True) - 1
@@ -106,48 +208,40 @@ def one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     act = torch.arange(n_eff, device=dev)
     while act.numel():
         ii, rg, tt, nr, lf = i[act], reg[act], t[act], nrec[act], lenf[act]
-        # gate: exactly one alternative last base
-        base = (rg >> 2) << 2
-        oks = [probe(base ^ a) for a in range(4)]
-        nalts = sum(o.long() for o in oks)
-        corr = base ^ sum(a * oks[a].long() for a in range(4))
-        # One: scenarios D (off 0), S (off 1), I (off 2)
-        rem = lf - ii
-        corr_ok = probe(corr)
-        keep, more = [], []
-        for off in range(3):
-            km, allv, last = corr, corr_ok, None
-            for s in range(c + 1):
-                km = dc.add_nuc(km, code_at(ii + off + s), k)
-                v = probe(km)
-                if s < c:
-                    allv = allv & v
-                else:
-                    last = v
-            keep.append((off + c <= rem) & allv)
-            more.append((rem > c + off + 1) & last)
-        nk = sum(x.long() for x in keep)
-        keep2 = [a & b for a, b in zip(keep, more)]
-        nk2 = sum(x.long() for x in keep2)
-        applied = (nalts == 1) & ((nk == 1) | ((nk > 1) & (nk2 == 1)))
-        sel = [torch.where(nk == 1, a, b) for a, b in zip(keep, keep2)]
-        offset = sel[1].long() + 2 * sel[2].long()
+        nalts, corr = alt_last(probe, rg)
+        gate = nalts == 1
+        g = gate.nonzero().squeeze(1)
+        res = attempt(probe, code_at, ii[g], rg[g], corr[g], lf[g])
+        n = act.numel()
 
-        over = applied & (nr >= SLOTS)
-        wr = applied & ~over
+        def spread(x, fill=0):
+            out = torch.full((n,) + x.shape[1:], fill, dtype=x.dtype,
+                             device=dev)
+            out[g] = x
+            return out
+
+        capa = spread(res.cap, False)
+        ok = spread(res.ok, False) & ~capa
+        consumed = spread(res.consumed)
+        new_kmer = spread(res.new_kmer)
+
+        over = ok & (nr >= SLOTS)
+        wr = ok & ~over
         widx = act[wr] * SLOTS + nr[wr]
         rec_p[widx] = ii[wr].int()
-        rec_c[widx] = 1
-        rec_s[widx] = offset[wr].int()
-        rec_e[widx] = (corr[wr] & 3).int()
+        rec_c[widx] = spread(res.cnt)[wr].int()
+        rec_s[widx] = consumed[wr].int()
+        rec_e[widx] = as_i32(spread(res.emit)[wr])
         nrec[act] = nr + wr.long()
         s_cap[act[over]] = CAP_OVERFLOW
+        s_cap[act[capa]] = CAP_ATTEMPT
+        bad = over | capa
 
         # dirty simulation: the scan machine for k steps past a repair
-        si = torch.where(applied, ii + offset, ii + 1)
-        sreg = torch.where(applied, corr, rg)
-        st = torch.where(applied, 0, tt)
-        prev = applied.clone()
+        si = torch.where(ok, ii + consumed, ii + 1)
+        sreg = torch.where(ok, new_kmer, rg)
+        st = torch.where(ok, 0, tt)
+        prev = ok.clone()
         state = torch.full_like(si, -1)
         for _ in range(k):
             run = state < 0
@@ -170,14 +264,25 @@ def one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
         # successor: first listed site at or after si inside the read
         q = torch.searchsorted(sites, si)
         qc = q.clamp(max=n_eff - 1)
-        has = ((state == DONE_PURE) & ~over & (si < CHUNK) & (q < n_eff)
+        has = ((state == DONE_PURE) & ~bad & (si < CHUNK) & (q < n_eff)
                & (sites[qc] < lf))
         succ[act[has]] = q[has].int()
 
-        pend = (state == PENDING) & ~over
+        pend = (state == PENDING) & ~bad
         nxt = act[pend]
         i[nxt] = si[pend]
         reg[nxt] = sreg[pend]
         t[nxt] = st[pend] + 1
         act = nxt
     return Sites(succ, s_cap, rec_p, rec_c, rec_s, rec_e)
+
+
+def one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
+                    k: int, c: int) -> Sites:
+    """The same function as K2 in plain PyTorch ops."""
+
+    def attempt(probe, code_at, ii, rg, corr, lf):
+        return one_attempt_plain(probe, code_at, k, c, ii, corr, lf)
+
+    return run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k, 1, attempt)

@@ -6,7 +6,10 @@ and the splice (:1751-1839, with ``_compact`` :195 and ``_lower_bound``
 :183).  A read's visited sites are its head site (the first listed site
 at or after its start) and the successors from there; their repair
 records, in order, cut the read into verbatim segments, emitted bases and
-a tail.  Cap rules are the JAX pass's: a capped site anywhere in the
+a tail; a record's emitted bases are 16 to a word of its row of
+``rec_e`` (one word for ``one``, ``two`` and ``greedy``, ``EW`` words of
+up to walk_max + 1 bases for the walk strategies).  Cap rules are the
+JAX pass's: a capped site anywhere in the
 read, a negative verbatim length, an output longer than the slot, a
 negative tail, and K1's site overflow.  Unlike :1822-1827 nothing is
 clipped to the slot's last position, so a read that fills its slot
@@ -54,9 +57,14 @@ def chain_splice(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
     kernels.check(cap_dense, "cap_dense", torch.bool, dev, R)
     for name in ("succ", "s_cap"):
         kernels.check(getattr(sites, name), name, torch.int32, dev, NS)
-    for name in ("rec_p", "rec_c", "rec_s", "rec_e"):
+    for name in ("rec_p", "rec_c", "rec_s"):
         kernels.check(getattr(sites, name), name, torch.int32, dev,
                       NS * SLOTS)
+    re = sites.rec_e
+    if (re.dtype != torch.int32 or re.device != dev or re.dim() != 2
+            or re.shape[0] != NS * SLOTS or not re.is_contiguous()):
+        raise ValueError("rec_e must be a contiguous (NS*SLOTS, EW) int32 "
+                         "tensor on the codes' device")
     if kernels.on_cuda(codes):
         return _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites,
                                   sites, cap_dense)
@@ -70,6 +78,7 @@ def _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
                          codes.device)
     # segment table scratch, one region per read (its site range)
     seg = torch.empty((4, NS * SLOTS), dtype=torch.int32, device=dev)
+    EW = sites.rec_e.shape[1]
     out = torch.zeros(CHUNK, dtype=torch.uint8, device=dev)
     out_len = torch.empty(R, dtype=torch.int32, device=dev)
     cap = torch.empty(R, dtype=torch.bool, device=dev)
@@ -77,7 +86,8 @@ def _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
     aux = torch.zeros(8, dtype=torch.int32, device=dev)
     kernels.launch(
         "chain_splice", codes, rstart, rlen, s_pos, n_sites, *sites,
-        cap_dense, CHUNK, R, NS, *seg, out, out_len, cap, rec_cnt, aux)
+        cap_dense, CHUNK, R, NS, EW, *seg, out, out_len, cap, rec_cnt,
+        aux)
     return Spliced(out, out_len, cap, rec_cnt, aux)
 
 
@@ -116,7 +126,8 @@ def chain_splice_plain(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
     p = sites.rec_p.long()[flat]
     cnt = sites.rec_c.long()[flat]
     sh = sites.rec_s.long()[flat]
-    emit = sites.rec_e.long()[flat]
+    emit = sites.rec_e.long()[flat] & 0xFFFFFFFF      # (M, EW)
+    EW = emit.shape[1]
     rr = torch.searchsorted(rs, p, right=True) - 1
     M = flat.numel()
     first = torch.ones(M, dtype=torch.bool, device=dev)
@@ -170,8 +181,9 @@ def chain_splice_plain(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
         d = o - ostart[j]
         verb = d < vlen[j]
         src_v = pe[j] + d
-        code_e = ((emit[j] >> (2 * (d - vlen[j]).clamp(min=0))) & 3).to(
-            torch.uint8)
+        e = (d - vlen[j]).clamp(min=0)
+        word = emit[j, (e // 16).clamp(max=EW - 1)]
+        code_e = ((word >> (2 * (e % 16))) & 3).to(torch.uint8)
         val_body = torch.where(verb, codes3[src_v.clamp(0, CHUNK - 1)],
                                code_e)
     else:

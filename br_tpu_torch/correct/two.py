@@ -1,0 +1,138 @@
+"""K5 ``two_sites``: the attempt sites of a ``two`` pass.
+
+Port of the site-block queue of br_tpu/correct/engine3.py:1592-1708 for
+strategy ``two``, whose attempt is ``make_two_attempt32`` (:359-490): the
+13 two-error scenarios of exist/two.rs.  Each has an apply step (a
+candidate register and its gate), a score over c+1 k-mers from its apply
+offset, its emitted bases (the last 1-3 bases of the alternative or of the
+candidate; none for DCI, which consumes 1, PARITY.md:29) and its correct
+offset for the record and the one_more probe.  A unique perfect score
+applies; among several, a unique one_more.  The site chain around the
+attempt is that of ``sites.py``.
+
+``two_sites`` launches ``csrc/two_sites.cu`` for CUDA tensors and runs
+``two_sites_plain`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from br_tpu_torch import kernels
+from br_tpu_torch.correct import device_codec as dc
+from br_tpu_torch.correct.sites import (
+    Attempt, Sites, alt_last, alt_next, check_site_args, empty_sites,
+    run_sites_plain)
+
+#: per scenario, in exist/two.rs's order: II IS SS SD DD ICI ICS ICD SCI
+#: SCS SCD DCI DCD.
+APPLY_OFF = (3, 2, 2, 1, 0, 4, 3, 3, 4, 3, 2, 4, 1)
+CORRECT_OFF = (2, 2, 2, 1, 0, 3, 4, 2, 4, 3, 2, 1, 1)
+#: emitted bases per scenario: how many, and whether they are the last
+#: bases of the alternative k-mer (else of the scenario's candidate).
+EMIT_N = (1, 1, 2, 2, 2, 1, 2, 2, 3, 3, 3, 0, 3)
+EMIT_CORR = (True, True, False, False, False, True, False, False, False,
+             False, False, False, False)
+
+
+def two_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
+              c: int) -> Sites:
+    """Run every listed site of a ``two`` pass."""
+    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
+    if c < 0:
+        raise ValueError(f"confirm must be >= 0, got {c}")
+    if kernels.on_cuda(codes):
+        NS = s_pos.shape[0]
+        out = empty_sites(NS, 1, codes.device)
+        kernels.launch(
+            "two_sites", codes, table, kmers, s_pos, n_sites, rstart, rlen,
+            codes.shape[0], rstart.shape[0], k, c, NS, *out)
+        return out
+    return two_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k, c)
+
+
+def two_attempt_plain(probe, code_at, k: int, c: int, ii, rg, corr, lf):
+    """The 13 scenarios over lanes (make_two_attempt32, engine3.py:359)."""
+    rem = lf - ii
+
+    def absorb(km, idx):
+        return dc.add_nuc(km, code_at(idx), k)
+
+    def nxt(km):
+        n, code = alt_next(probe, km, k)
+        return n == 1, dc.add_nuc(km, code, k)
+
+    true = torch.ones_like(rem, dtype=torch.bool)
+    t1 = absorb(corr, ii + 1)
+    t1v = probe(t1)
+    n, ss = alt_last(probe, t1)
+    sd_ok, sd = nxt(corr)
+    t3 = absorb(corr, ii + 3)
+    second = absorb(corr, ii + 2)
+    icd_ok, icd = nxt(second)
+    sci = absorb(t1, ii + 3)
+    t2 = absorb(t1, ii + 2)
+    n2, scs = alt_last(probe, t2)
+    scd_ok, scd = nxt(t1)
+    dcd_ok, dcd = nxt(absorb(corr, ii))
+    scen = [
+        (true, corr),                                       # II
+        (true, corr),                                       # IS
+        ((rem >= 2) & ~t1v & (n == 1), ss),                 # SS
+        ((rem >= 1) & sd_ok, sd),                           # SD
+        (sd_ok, sd),                                        # DD
+        ((rem >= 4) & probe(t3), t3),                       # ICI
+        ((rem >= 4) & ~t1v & (n == 1), ss),                 # ICS
+        ((rem >= 4) & icd_ok, icd),                         # ICD
+        (rem >= 4, sci),                                    # SCI
+        ((rem >= 3) & t1v & ~probe(t2) & (n2 == 1), scs),   # SCS
+        ((rem >= 2) & scd_ok, scd),                         # SCD
+        (rem >= 4, sci),                                    # DCI
+        ((rem >= 2) & dcd_ok, dcd),                         # DCD
+    ]
+    keeps, mores, emits, new_kmers = [], [], [], []
+    for s, (a_ok, km2) in enumerate(scen):
+        off_a, off_c, ne = APPLY_OFF[s], CORRECT_OFF[s], EMIT_N[s]
+        km = km2
+        score = a_ok & probe(km2) & (off_a + c <= rem)
+        for t in range(c):
+            km = absorb(km, ii + off_a + t)
+            score = score & probe(km)
+        keeps.append(score)
+        src = corr if EMIT_CORR[s] else km2
+        bases = [(src >> (2 * (ne - 1 - t))) & 3 for t in range(ne)]
+        ew = torch.zeros_like(rg)
+        nk, om = rg >> 2, corr >> 2
+        for t, b in enumerate(bases):
+            ew = ew | (b << (2 * t))
+            nk = dc.add_nuc(nk, b, k)
+            om = dc.add_nuc(om, b, k)
+        for t in range(c + 1):
+            om = absorb(om, ii + off_c + t)
+        mores.append((rem > c + off_c + 1) & probe(om))
+        emits.append(ew)
+        new_kmers.append(nk)
+    keep = torch.stack(keeps)
+    keep2 = keep & torch.stack(mores)
+    nk1, nk2 = keep.sum(0), keep2.sum(0)
+    ok = (nk1 == 1) | ((nk1 > 1) & (nk2 == 1))
+    sel = torch.where(nk1 == 1, keep, keep2).long()
+    consumed = (torch.tensor(CORRECT_OFF, device=sel.device)[:, None]
+                * sel).sum(0)
+    cnt = (torch.tensor(EMIT_N, device=sel.device)[:, None] * sel).sum(0)
+    emit = (torch.stack(emits) * sel).sum(0)
+    new_kmer = (torch.stack(new_kmers) * sel).sum(0)
+    return Attempt(ok, torch.zeros_like(ok), new_kmer, consumed, cnt,
+                   emit[:, None])
+
+
+def two_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
+                    k: int, c: int) -> Sites:
+    """The same function as K5 in plain PyTorch ops."""
+
+    def attempt(probe, code_at, ii, rg, corr, lf):
+        return two_attempt_plain(probe, code_at, k, c, ii, rg, corr, lf)
+
+    return run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k, 1, attempt)

@@ -12,10 +12,14 @@
 // nt[rstart] at :1734) and lays the visited records out in order: for
 // record j the verbatim segment codes[pe_j, p_j) and then its emitted
 // bases, with pe_0 = rstart and pe_j = p_{j-1} + consumed_{j-1}; the
-// segment table goes to scratch at the read's own site range, so reads
+// segment table (output offset, verbatim start and length, and the
+// record's index) goes to scratch at the read's own site range, so reads
 // never share scratch.  Then every thread of the block writes its share
 // of the slot: verbatim bases, emitted bases (binary search of the
-// segment table), the tail codes[last_end, rend), and zeros past out_len.
+// segment table; emitted base e of a record is bits 2*(e%16) of its word
+// e/16, so a walk record's up to walk_max+1 bases in EW words splice like
+// a scenario's one word), the tail codes[last_end, rend), and zeros past
+// out_len.
 // Cap rules as in the JAX pass: any capped site of the read, visited or
 // not (:1748-1749); a negative verbatim length (:1770); out_len > rcap or
 // a negative tail (:1784-1785); and K1's NS overflow.  Unlike :1822-1827
@@ -40,9 +44,9 @@ __global__ void __launch_bounds__(K3_THREADS) chain_splice_kernel(
     const int32_t* __restrict__ s_cap, const int32_t* __restrict__ rec_p,
     const int32_t* __restrict__ rec_c, const int32_t* __restrict__ rec_s,
     const int32_t* __restrict__ rec_e,
-    const uint8_t* __restrict__ cap_dense, int CHUNK, int R, int NS,
+    const uint8_t* __restrict__ cap_dense, int CHUNK, int R, int NS, int EW,
     int32_t* __restrict__ seg_o, int32_t* __restrict__ seg_pe,
-    int32_t* __restrict__ seg_v, int32_t* __restrict__ seg_e,
+    int32_t* __restrict__ seg_v, int32_t* __restrict__ seg_r,
     uint8_t* __restrict__ out,
     int32_t* __restrict__ out_len, uint8_t* __restrict__ cap,
     int32_t* __restrict__ rec_cnt, int32_t* __restrict__ aux) {
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(K3_THREADS) chain_splice_kernel(
         seg_o[ob + m] = body;
         seg_pe[ob + m] = pe;
         seg_v[ob + m] = vlen;
-        seg_e[ob + m] = rec_e[x * BR_SLOTS + s];
+        seg_r[ob + m] = x * BR_SLOTS + s;
         body += vlen + cnt;
         pe = p + rec_s[x * BR_SLOTS + s];
         ++m;
@@ -165,7 +169,10 @@ __global__ void __launch_bounds__(K3_THREADS) chain_splice_kernel(
           src = seg_pe[ob + j] + d;
           v = codes[max(0, min(src, CHUNK - 1))] & 3u;
         } else {
-          v = ((uint32_t)seg_e[ob + j] >> (2 * (d - vl))) & 3u;
+          const int e = d - vl;
+          const uint32_t w =
+              (uint32_t)rec_e[(size_t)seg_r[ob + j] * EW + e / 16];
+          v = (w >> (2 * (e % 16))) & 3u;
         }
       }
     }
@@ -178,7 +185,8 @@ extern "C" int br_chain_splice(
     const void* s_pos, const void* n_sites, const void* succ,
     const void* s_cap, const void* rec_p, const void* rec_c,
     const void* rec_s, const void* rec_e, const void* cap_dense, int CHUNK,
-    int R, int NS, void* seg_o, void* seg_pe, void* seg_v, void* seg_e,
+    int R, int NS, int EW, void* seg_o, void* seg_pe, void* seg_v,
+    void* seg_r,
     void* out, void* out_len, void* cap, void* rec_cnt,
     void* aux, void* stream) {
   chain_splice_kernel<<<R, K3_THREADS, 0, (cudaStream_t)stream>>>(
@@ -186,8 +194,8 @@ extern "C" int br_chain_splice(
       (const int32_t*)s_pos, (const int32_t*)n_sites, (const int32_t*)succ,
       (const int32_t*)s_cap, (const int32_t*)rec_p, (const int32_t*)rec_c,
       (const int32_t*)rec_s, (const int32_t*)rec_e,
-      (const uint8_t*)cap_dense, CHUNK, R, NS, (int32_t*)seg_o,
-      (int32_t*)seg_pe, (int32_t*)seg_v, (int32_t*)seg_e, (uint8_t*)out, (int32_t*)out_len, (uint8_t*)cap, (int32_t*)rec_cnt,
-      (int32_t*)aux);
+      (const uint8_t*)cap_dense, CHUNK, R, NS, EW, (int32_t*)seg_o,
+      (int32_t*)seg_pe, (int32_t*)seg_v, (int32_t*)seg_r, (uint8_t*)out,
+      (int32_t*)out_len, (uint8_t*)cap, (int32_t*)rec_cnt, (int32_t*)aux);
   return (int)cudaGetLastError();
 }

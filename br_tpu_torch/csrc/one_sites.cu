@@ -8,145 +8,36 @@
 // one_more rules of exist/mod.rs) and dirty_sim (:1526, the scan machine
 // for k steps after a repair, which finds nested sites).
 //
-// One thread per site id sid < NS.  Site sid sits at s_pos[sid] (K1's
-// site list).  The thread starts from the dense k-mer there with t = k,
-// and loops: gate (4 probes), One attempt (1 + 3*(c+1) probes over the
-// code window i .. i+c+2, clipped to the chunk like the JAX window; the
-// rem gating of engine3.py:333-337 is what keeps bases past the read end
-// out of the result), record write into the site's slot (past SLOTS
+// One thread per site id sid < NS runs the site chain of
+// sites_common.cuh: gate (4 probes), One attempt (1 + 3*(c+1) probes over
+// the code window i .. i+c+2, clipped to the chunk like the JAX window;
+// the rem gating of engine3.py:333-337 is what keeps bases past the read
+// end out of the result), record write into the site's slot (past SLOTS
 // records the site caps with CAP_OVERFLOW), dirty simulation of at most k
-// steps; PENDING re-attempts at the nested site, DONE_PURE takes as
-// successor the first listed site at or after the stop position inside
-// the read (lower bound over s_pos), DONE_END has none.  The JAX queue's
-// generation capacities (NQA pending slots, MAXB rounds -> CAP_ROUNDS,
-// :1362-1372) have no counterpart: each thread finishes its own chain.
+// steps, then a nested attempt, the successor or the read end.  The JAX
+// queue's generation capacities (NQA pending slots, MAXB rounds ->
+// CAP_ROUNDS, :1362-1372) have no counterpart: each thread finishes its
+// own chain.
 //
 // Bound on the H100: the probes.  ~24 bitfield reads per attempt at c=5
 // are dependent loads from L2 (4 MiB table at k=13), so a thread is
 // latency-bound; the design keeps everything in registers, gives every
 // site its own thread (tens of thousands per chunk) to hide latency, and
 // writes each output once.
-#include "common.cuh"
+#include "sites_common.cuh"
 
-#define K2_THREADS 256
-#define DONE_PURE 0
-#define DONE_END 1
-#define PENDING 2
-
-__device__ __forceinline__ uint32_t code_at(const uint8_t* codes, int i,
-                                            int CHUNK) {
-  return codes[i < CHUNK ? i : CHUNK - 1] & 3u;
-}
-
-__global__ void __launch_bounds__(K2_THREADS) one_sites_kernel(
-    const uint8_t* __restrict__ codes, const uint32_t* __restrict__ table,
-    const int32_t* __restrict__ kmers, const int32_t* __restrict__ s_pos,
-    const int32_t* __restrict__ n_sites, const int32_t* __restrict__ rstart,
-    const int32_t* __restrict__ rlen, int CHUNK, int R, int k, int c,
-    int NS, int32_t* __restrict__ succ, int32_t* __restrict__ s_cap,
-    int32_t* __restrict__ rec_p, int32_t* __restrict__ rec_c,
-    int32_t* __restrict__ rec_s, int32_t* __restrict__ rec_e) {
+__global__ void __launch_bounds__(BR_SITE_THREADS)
+    one_sites_kernel(BrSites a, int c) {
   __shared__ int32_t sh_start[BR_MAX_R];
   __shared__ int32_t sh_len[BR_MAX_R];
-  for (int r = threadIdx.x; r < R; r += K2_THREADS) {
-    sh_start[r] = rstart[r];
-    sh_len[r] = rlen[r];
-  }
-  __syncthreads();
-  const int sid = blockIdx.x * K2_THREADS + threadIdx.x;
-  if (sid >= NS) return;
-  const int n_eff = min(n_sites[0], NS);
-  const int rb = sid * BR_SLOTS;
-  int nrec = 0, cap = 0, nxt = NS;
-
-  if (sid < n_eff) {
-    const uint32_t kmask = br_kmask(k);
-    const int pos = s_pos[sid];
-    const int rid = br_slot_of(sh_start, R, pos);
-    const int lenf = sh_start[rid] + sh_len[rid];
-    int i = pos, t = k;
-    uint32_t reg = (uint32_t)kmers[pos];
-    while (true) {
-      // gate: exactly one alternative last base (mod.rs:114-116)
-      const uint32_t base = (reg >> 2) << 2;
-      int nalts = 0;
-      uint32_t alt = 0;
-      for (uint32_t a = 0; a < 4; ++a) {
-        if (br_probe(table, base ^ a, k)) { ++nalts; alt += a; }
-      }
-      const uint32_t corr = base ^ alt;
-      bool applied = false;
-      int offset = 0;
-      if (nalts == 1) {
-        // One: scenarios D (off 0), S (off 1), I (off 2)
-        const int rem = lenf - i;
-        const bool corr_ok = br_probe(table, corr, k);
-        bool keep[3], more[3];
-        for (int off = 0; off < 3; ++off) {
-          uint32_t km = corr;
-          bool all = true, last = false;
-          for (int s = 0; s <= c; ++s) {
-            km = br_add(km, code_at(codes, i + off + s, CHUNK), kmask);
-            bool v = br_probe(table, km, k);
-            if (s < c) all = all && v; else last = v;
-          }
-          keep[off] = (off + c <= rem) && corr_ok && all;
-          more[off] = (rem > c + off + 1) && last;
-        }
-        const int nk = keep[0] + keep[1] + keep[2];
-        bool keep2[3];
-        for (int off = 0; off < 3; ++off) keep2[off] = keep[off] && more[off];
-        const int nk2 = keep2[0] + keep2[1] + keep2[2];
-        applied = (nk == 1) || (nk > 1 && nk2 == 1);
-        const bool* sel = nk == 1 ? keep : keep2;
-        offset = sel[1] ? 1 : (sel[2] ? 2 : 0);
-      }
-      if (applied) {
-        if (nrec >= BR_SLOTS) { cap = BR_CAP_OVERFLOW; break; }
-        rec_p[rb + nrec] = i;
-        rec_c[rb + nrec] = 1;
-        rec_s[rb + nrec] = offset;
-        rec_e[rb + nrec] = (int32_t)(corr & 3u);
-        ++nrec;
-      }
-      // dirty simulation: the scan machine until k steps past the last
-      // applied repair (engine3.py:1526-1564)
-      int si = applied ? i + offset : i + 1;
-      uint32_t sreg = applied ? corr : reg;
-      int st = applied ? 0 : t;
-      bool prev = applied;
-      int state = DONE_PURE;
-      for (int m = 0; m < k; ++m) {
-        if (st >= k) { state = DONE_PURE; break; }
-        if (si >= lenf) { state = DONE_END; break; }
-        sreg = br_add(sreg, code_at(codes, si, CHUNK), kmask);
-        bool v = br_probe(table, sreg, k);
-        if (!v && prev) { state = PENDING; break; }
-        prev = v;
-        ++si;
-        ++st;
-      }
-      if (state == PENDING) {  // nested site: attempt again there
-        i = si;
-        reg = sreg;
-        t = st + 1;
-        continue;
-      }
-      if (state == DONE_PURE && si < CHUNK) {
-        int q = br_lower_bound(s_pos, n_eff, si);
-        if (q < n_eff && s_pos[q] < lenf) nxt = q;
-      }
-      break;
-    }
-  }
-  succ[sid] = nxt;
-  s_cap[sid] = cap;
-  for (int s = nrec; s < BR_SLOTS; ++s) {
-    rec_p[rb + s] = BR_BIG;
-    rec_c[rb + s] = 0;
-    rec_s[rb + s] = 0;
-    rec_e[rb + s] = 0;
-  }
+  br_stage_slots(a, sh_start, sh_len);
+  const int sid = blockIdx.x * BR_SITE_THREADS + threadIdx.x;
+  if (sid >= a.NS) return;
+  auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
+                     int32_t* erow) {
+    return br_one_attempt(a, c, i, corr, lenf, erow);
+  };
+  br_site_chain(a, sid, sh_start, sh_len, attempt);
 }
 
 extern "C" int br_one_sites(
@@ -155,12 +46,10 @@ extern "C" int br_one_sites(
     const void* rlen, int CHUNK, int R, int k, int c, int NS, void* succ,
     void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e,
     void* stream) {
-  int nblocks = (NS + K2_THREADS - 1) / K2_THREADS;
-  one_sites_kernel<<<nblocks, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const uint32_t*)table, (const int32_t*)kmers,
-      (const int32_t*)s_pos, (const int32_t*)n_sites,
-      (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, c, NS,
-      (int32_t*)succ, (int32_t*)s_cap, (int32_t*)rec_p, (int32_t*)rec_c,
-      (int32_t*)rec_s, (int32_t*)rec_e);
+  BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
+                            rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
+                            rec_c, rec_s, rec_e);
+  one_sites_kernel<<<br_site_blocks(NS), BR_SITE_THREADS, 0,
+                     (cudaStream_t)stream>>>(a, c);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,256 @@
+// Shared device code of the site kernels: K2 one_sites, K5 two_sites,
+// K6 walk_sites and K7 greedy_sites.
+//
+// Every site kernel has K2's shape: one thread per listed site id
+// sid < NS, which runs its site's whole chain of nested attempts to the
+// end (the site-block queue of br_tpu/correct/engine3.py:1592-1708, with
+// the JAX queue's generation capacities NQA / MAXB -> CAP_ROUNDS having
+// no counterpart).  A chain step is: the exactly-one-alternative gate
+// (_alt_info32_arr, :966); the strategy's attempt, a functor the kernel
+// passes in; a repair record when it applies (at most SLOTS per site,
+// beyond that CAP_OVERFLOW); an attempt that hits an engineered bound
+// caps the site with CAP_ATTEMPT; then the dirty simulation (dirty_sim,
+// :1526-1564) for k steps past the last repair, which either finds a
+// nested site (attempt again there), reaches the read end, or hands over
+// to the successor: the first listed site at or after the stop position
+// inside the read (a lower bound over s_pos, in place of the JAX nt
+// table).
+//
+// Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
+// count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
+// 16 2-bit bases per 32-bit word, LSB first.  An attempt writes its emit
+// words into the record row it is given (none past SLOTS).  A record's
+// rec_c, rec_s and first ceil(rec_c/16) emit words are written; an unused
+// slot gets rec_p = BR_BIG and nothing else, and words past a record's
+// count are left as they are: K3 stops at the rec_p sentinel and at
+// rec_c, so nothing reads them (sites.defined is what is compared).
+#pragma once
+
+#include "common.cuh"
+
+#define BR_SITE_THREADS 256
+#define BR_BPW 16
+#define BR_DONE_PURE 0
+#define BR_DONE_END 1
+#define BR_PENDING 2
+
+// The code at flat position i, clipped into the chunk like the JAX window
+// gathers (_code_at, engine3.py:179).  Past a read's end this is the next
+// slot's or stale slack's code: only each attempt's rem gating keeps such
+// bases out of a result, never their values.
+__device__ __forceinline__ uint32_t code_at(const uint8_t* codes, int i,
+                                            int CHUNK) {
+  i = i < 0 ? 0 : (i < CHUNK ? i : CHUNK - 1);
+  return codes[i] & 3u;
+}
+
+// Alternatives for the last base of km (mod.rs:114-116): returns how
+// many of base^a (a = 0..3) are solid; *repl = base ^ (sum of those a),
+// the one alternative when the count is 1.
+__device__ __forceinline__ int br_alt_last(const uint32_t* __restrict__ table,
+                                           uint32_t km, int k,
+                                           uint32_t* repl) {
+  const uint32_t base = (km >> 2) << 2;
+  int n = 0;
+  uint32_t alt = 0;
+  for (uint32_t a = 0; a < 4; ++a) {
+    if (br_probe(table, base ^ a, k)) { ++n; alt += a; }
+  }
+  *repl = base ^ alt;
+  return n;
+}
+
+// Successors of km (mod.rs:118-128): returns how many of add(km, a) are
+// solid; *code = the sum of those a, the one successor's base when the
+// count is 1.
+__device__ __forceinline__ int br_alt_next(const uint32_t* __restrict__ table,
+                                           uint32_t km, int k, uint32_t kmask,
+                                           uint32_t* code) {
+  int n = 0;
+  uint32_t alt = 0;
+  for (uint32_t a = 0; a < 4; ++a) {
+    if (br_probe(table, br_add(km, a, kmask), k)) { ++n; alt += a; }
+  }
+  *code = alt;
+  return n;
+}
+
+// Everything a site kernel reads and writes.
+struct BrSites {
+  const uint8_t* codes;
+  const uint32_t* table;
+  const int32_t* kmers;
+  const int32_t* s_pos;
+  const int32_t* n_sites;
+  const int32_t* rstart;
+  const int32_t* rlen;
+  int CHUNK, R, k, NS, EW;
+  int32_t* succ;
+  int32_t* s_cap;
+  int32_t* rec_p;
+  int32_t* rec_c;
+  int32_t* rec_s;
+  int32_t* rec_e;
+};
+
+// One attempt's result (AttemptOut3, engine3.py:220).
+struct BrAttempt {
+  bool ok;            // the repair applies
+  bool cap;           // an engineered bound was hit: the site caps
+  uint32_t new_kmer;  // the register after the emitted bases
+  int consumed;       // input positions skipped
+  int cnt;            // emitted bases
+};
+
+// The One attempt (exist/one.rs; make_one_attempt32_arr, engine3.py:300):
+// scenarios D (offset 0), S (1), I (2), each scored over c+1 k-mers of
+// the code window i+off .. i+off+c; unique perfect score, or a unique
+// one_more among several.  corr is the gated alternative k-mer.
+__device__ __forceinline__ BrAttempt br_one_attempt(
+    const BrSites& a, int c, int i, uint32_t corr, int lenf,
+    int32_t* erow) {
+  const uint32_t kmask = br_kmask(a.k);
+  const int rem = lenf - i;
+  const bool corr_ok = br_probe(a.table, corr, a.k);
+  bool keep[3], more[3];
+  for (int off = 0; off < 3; ++off) {
+    uint32_t km = corr;
+    bool all = true, last = false;
+    for (int s = 0; s <= c; ++s) {
+      km = br_add(km, code_at(a.codes, i + off + s, a.CHUNK), kmask);
+      bool v = br_probe(a.table, km, a.k);
+      if (s < c) all = all && v; else last = v;
+    }
+    keep[off] = (off + c <= rem) && corr_ok && all;
+    more[off] = (rem > c + off + 1) && last;
+  }
+  const int nk = keep[0] + keep[1] + keep[2];
+  bool keep2[3];
+  for (int off = 0; off < 3; ++off) keep2[off] = keep[off] && more[off];
+  const int nk2 = keep2[0] + keep2[1] + keep2[2];
+  BrAttempt r;
+  r.ok = (nk == 1) || (nk > 1 && nk2 == 1);
+  const bool* sel = nk == 1 ? keep : keep2;
+  r.consumed = sel[1] ? 1 : (sel[2] ? 2 : 0);
+  r.cap = false;
+  r.new_kmer = corr;
+  r.cnt = 1;
+  if (r.ok && erow) erow[0] = (int32_t)(corr & 3u);
+  return r;
+}
+
+// Stage the slot table in shared memory (every thread of the block).
+__device__ __forceinline__ void br_stage_slots(const BrSites& a,
+                                               int32_t* sh_start,
+                                               int32_t* sh_len) {
+  for (int r = threadIdx.x; r < a.R; r += blockDim.x) {
+    sh_start[r] = a.rstart[r];
+    sh_len[r] = a.rlen[r];
+  }
+  __syncthreads();
+}
+
+// The whole chain of site sid.  attempt(i, reg, corr, lenf, erow) runs
+// the strategy at flat position i with register reg, whose gated
+// alternative is corr, in a read ending at lenf; erow is the record row
+// of the next record, or null past SLOTS.
+template <class Attempt>
+__device__ void br_site_chain(const BrSites& a, int sid,
+                              const int32_t* sh_start, const int32_t* sh_len,
+                              Attempt& attempt) {
+  const int n_eff = min(a.n_sites[0], a.NS);
+  const int rb = sid * BR_SLOTS;
+  const int k = a.k;
+  int nrec = 0, cap = 0, nxt = a.NS;
+
+  if (sid < n_eff) {
+    const uint32_t kmask = br_kmask(k);
+    const int pos = a.s_pos[sid];
+    const int rid = br_slot_of(sh_start, a.R, pos);
+    const int lenf = sh_start[rid] + sh_len[rid];
+    int i = pos, t = k;
+    uint32_t reg = (uint32_t)a.kmers[pos];
+    while (true) {
+      uint32_t corr;
+      BrAttempt r = {false, false, 0u, 0, 0};
+      if (br_alt_last(a.table, reg, k, &corr) == 1) {
+        int32_t* erow = nrec < BR_SLOTS
+                            ? a.rec_e + (size_t)(rb + nrec) * a.EW
+                            : nullptr;
+        r = attempt(i, reg, corr, lenf, erow);
+        if (r.cap) { cap = BR_CAP_ATTEMPT; break; }
+      }
+      const bool applied = r.ok;
+      if (applied) {
+        if (nrec >= BR_SLOTS) { cap = BR_CAP_OVERFLOW; break; }
+        a.rec_p[rb + nrec] = i;
+        a.rec_c[rb + nrec] = r.cnt;
+        a.rec_s[rb + nrec] = r.consumed;
+        ++nrec;
+      }
+      // dirty simulation: the scan machine until k steps past the last
+      // applied repair
+      int si = applied ? i + r.consumed : i + 1;
+      uint32_t sreg = applied ? r.new_kmer : reg;
+      int st = applied ? 0 : t;
+      bool prev = applied;
+      int state = BR_DONE_PURE;
+      for (int m = 0; m < k; ++m) {
+        if (st >= k) { state = BR_DONE_PURE; break; }
+        if (si >= lenf) { state = BR_DONE_END; break; }
+        sreg = br_add(sreg, code_at(a.codes, si, a.CHUNK), kmask);
+        bool v = br_probe(a.table, sreg, k);
+        if (!v && prev) { state = BR_PENDING; break; }
+        prev = v;
+        ++si;
+        ++st;
+      }
+      if (state == BR_PENDING) {  // nested site: attempt again there
+        i = si;
+        reg = sreg;
+        t = st + 1;
+        continue;
+      }
+      if (state == BR_DONE_PURE && si < a.CHUNK) {
+        int q = br_lower_bound(a.s_pos, n_eff, si);
+        if (q < n_eff && a.s_pos[q] < lenf) nxt = q;
+      }
+      break;
+    }
+  }
+  a.succ[sid] = nxt;
+  a.s_cap[sid] = cap;
+  for (int s = nrec; s < BR_SLOTS; ++s) a.rec_p[rb + s] = BR_BIG;
+}
+
+// The entry points' struct, from the C arguments every site kernel takes.
+static inline BrSites br_sites_args(
+    const void* codes, const void* table, const void* kmers,
+    const void* s_pos, const void* n_sites, const void* rstart,
+    const void* rlen, int CHUNK, int R, int k, int NS, int EW, void* succ,
+    void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e) {
+  BrSites a;
+  a.codes = (const uint8_t*)codes;
+  a.table = (const uint32_t*)table;
+  a.kmers = (const int32_t*)kmers;
+  a.s_pos = (const int32_t*)s_pos;
+  a.n_sites = (const int32_t*)n_sites;
+  a.rstart = (const int32_t*)rstart;
+  a.rlen = (const int32_t*)rlen;
+  a.CHUNK = CHUNK;
+  a.R = R;
+  a.k = k;
+  a.NS = NS;
+  a.EW = EW;
+  a.succ = (int32_t*)succ;
+  a.s_cap = (int32_t*)s_cap;
+  a.rec_p = (int32_t*)rec_p;
+  a.rec_c = (int32_t*)rec_c;
+  a.rec_s = (int32_t*)rec_s;
+  a.rec_e = (int32_t*)rec_e;
+  return a;
+}
+
+static inline int br_site_blocks(int NS) {
+  return (NS + BR_SITE_THREADS - 1) / BR_SITE_THREADS;
+}

@@ -36,10 +36,16 @@ KERNELS = {
     "one_sites": ("one_sites.cu", "br_one_sites", "pppppppiiiii" + "pppppp"
                   + "p"),
     "chain_splice": ("chain_splice.cu", "br_chain_splice",
-                     "ppp" + "pppp" + "pppp" + "p" + "iii"
+                     "ppp" + "pppp" + "pppp" + "p" + "iiii"
                      + "ppppp" + "pppp" + "p"),
     "reverse_slots": ("reverse_slots.cu", "br_reverse_slots",
                       "pppp" + "ii" + "p"),
+    "two_sites": ("two_sites.cu", "br_two_sites", "pppppppiiiii" + "pppppp"
+                  + "p"),
+    "walk_sites": ("walk_sites.cu", "br_walk_sites", "pppppppp"
+                   + "iiiiiiii" + "ppppppp" + "p"),
+    "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "ppppppp"
+                     + "iiiiii" + "pppppp" + "p"),
 }
 
 #: launches per kernel since the last ``reset_launches``.

@@ -7,22 +7,33 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 
 1. toolchain and device: the card's name and power limit (nvidia-smi),
    torch's CUDA version, nvcc's version, whether triton imports;
-2. build: the four kernels from br_tpu_torch/csrc, one nvcc each, all at
+2. build: the seven kernels from br_tpu_torch/csrc, one nvcc each, all at
    once (started before the corpus is made, joined before first use);
 3. the main path's input: a seeded corpus (br_tpu_torch.corpus: 2000
    reads over a 2 Mb genome, ~24 Mb at 95-98 % identity) and the solid set
    of the CLI's `fasta -k 13 -a 2` (host count and threshold);
-4. kernel checks: K1-K4 on the card at the main path's shapes (the
-   corpus's first chunk: CHUNK = 2^20 positions, R = 512 slots, k = 13),
-   each held against its plain PyTorch version on the same inputs; the
-   results are integers and must match exactly; times from CUDA events;
-5. the main path: `-c one` forward and reversed over the whole corpus
-   through the CLI's entry points (build_set, make_corrector,
-   run_correction) with every launch count set to 0 just before; fails if
-   a kernel was not launched or more than 5 % of the reads went to the
-   host;
-6. output check: a seeded sample of 100 reads, and every read the device
-   did not finish, against the port's scalar oracle.
+4. kernel checks: K1-K7 on the card at the main path's shapes (the
+   corpus's first chunk: CHUNK = 2^20 positions, R = 512 slots, k = 13):
+   K1, then every site kernel (K2 one, K5 two, K6 graph and gap-size at
+   the default walk profile, K7 greedy) on K1's output, K3 on the one and
+   the graph records (one-word and multi-word emits), K4; each held
+   against its plain PyTorch version on the same inputs (a site kernel
+   through sites.defined, the entries it writes); the results are
+   integers and must match exactly; times from CUDA events, the plain
+   versions' after a first warm call;
+5. the main path: the default chain (no -c: one, two, graph, greedy,
+   gap-size), forward and reversed, over the whole corpus through the
+   CLI's entry points (build_set, make_corrector, run_correction) with
+   every launch count set to 0 just before; the passes' cap counters by
+   reason and strategy; fails if a kernel was not launched or more than
+   5 % of the reads went to the host;
+6. the wide profile's kernel checks, on the main path's first retry
+   chunk (2^18 positions, 32 slots, walk_max 2040): K1, K6 in both modes
+   and K3 on their records, as in 4;
+7. output check: a seeded sample of 100 reads, and every read the device
+   did not finish, against the port's scalar oracle of the default chain;
+8. the first slice's path, `-c one`, on the first 500 reads, with its own
+   launch counts, fallback limit and oracle check.
 
 The line before the last is the kernel summary {"kernels": [...]}; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -44,6 +55,8 @@ import numpy as np
 
 K, C, MS = 13, 5, 7
 N_READS, GENOME, MEAN_LEN, MAX_LEN, SEED = 2000, 2_000_000, 12000, 62000, 42
+#: reads of the corpus the `-c one` path corrects
+N_ONE = 500
 SAMPLE = 100
 MAX_FALLBACK = 0.05
 #: peak device memory bandwidth of an H100 SXM (NVIDIA's data sheet)
@@ -58,6 +71,12 @@ KERNEL_META = {
                      "br_tpu/correct/engine3.py:1723"),
     "reverse_slots": ("br_tpu_torch/csrc/reverse_slots.cu",
                       "br_tpu/correct/engine3.py:1920"),
+    "two_sites": ("br_tpu_torch/csrc/two_sites.cu",
+                  "br_tpu/correct/engine3.py:359"),
+    "walk_sites": ("br_tpu_torch/csrc/walk_sites.cu",
+                   "br_tpu/correct/engine3.py:1179"),
+    "greedy_sites": ("br_tpu_torch/csrc/greedy_sites.cu",
+                     "br_tpu/correct/engine3.py:719"),
 }
 
 
@@ -99,11 +118,13 @@ def toolchain():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; triton: {triton_ok}")
 
 
-def cuda_ms(fn, reps, sync):
-    """Mean milliseconds per call, by CUDA events around `reps` calls."""
+def cuda_ms(fn, reps, sync, warm=True):
+    """Mean milliseconds per call, by CUDA events around `reps` calls,
+    after one warm call unless the caller made it."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -126,14 +147,69 @@ def max_abs_err(a, b):
     return err
 
 
-def kernel_checks(table, chunk, k, c, device, sync, reps=20, plain_reps=2):
-    """K1-K4 against their plain versions on one chunk; returns
-    {name: {ms, plain_ms, bound_ms, max_abs_err}}."""
+def record_words(out, mask=None):
+    """(records, emit words) of the used records of a site kernel's
+    plain output (rec_p < BIG), or of those in ``mask``: a record's words
+    are ceil(rec_c / 16)."""
+    from br_tpu_torch.correct.layout import BIG
+
+    used = out.rec_p < BIG
+    if mask is not None:
+        used &= mask
+    return (int(used.sum()),
+            int(((out.rec_c.long() + 15) // 16)[used].sum()))
+
+
+def sites_bytes(NS, n_eff, R, CHUNK, window, out):
+    """Bytes a site kernel must move: the site list, the slot table, the
+    k-mers at the sites and their code windows in; succ and cap for every
+    site, rec_p for every slot, and for each used record its count, its
+    consumed positions and its ceil(cnt/16) emit words out."""
+    from br_tpu_torch.correct.layout import SLOTS
+
+    n_used, words = record_words(out)
+    return (4 * n_eff + 4 + 8 * R + 4 * n_eff + min(CHUNK, n_eff * window)
+            + NS * 8 + NS * SLOTS * 4 + 8 * n_used + 4 * words)
+
+
+def visited_slots(site_out, s_pos, n_sites, rs, rl, CHUNK):
+    """(NS*SLOTS,) bool: the slots of the sites K3's chain walk visits
+    (every read's head site and its successors, as chain_splice_plain)."""
+    import torch
+
+    from br_tpu_torch.correct.layout import SLOTS
+
+    NS = s_pos.shape[0]
+    sp = s_pos[:min(int(n_sites[0]), NS)].long()
+    rs, rl = rs.long(), rl.long()
+    lo = torch.searchsorted(sp, rs)
+    hi = torch.where((rl > 0) & (rs < CHUNK),
+                     torch.searchsorted(sp, rs + rl), lo)
+    succ = site_out.succ.long()
+    visited = torch.zeros(NS, dtype=torch.bool, device=sp.device)
+    cur = lo
+    while bool((cur < hi).any()):
+        live = cur < hi
+        visited[cur[live]] = True
+        nx = succ[cur.clamp(max=NS - 1)]
+        cur = torch.where(live & (nx > cur), nx, NS)
+    return visited.repeat_interleave(SLOTS)
+
+
+def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
+                  reps=10, plain_reps=2):
+    """Kernels against their plain versions on one chunk: K1-K7 at the
+    default walk profile, or (``wide``, on a retry chunk) K1, K6 in both
+    modes at walk_max 2040 and K3 on their records.  Returns {name: {ms,
+    plain_ms, bound_ms, max_abs_err}}; names with a bracket are a
+    kernel's further configurations."""
     import torch
 
     from br_tpu_torch.correct import device_codec as dc
-    from br_tpu_torch.correct import probe, reverse, sites, splice
-    from br_tpu_torch.correct.layout import SLOTS, site_capacity
+    from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
+                                      two, walk)
+    from br_tpu_torch.correct.layout import (
+        BIG, CAP_ATTEMPT, WALK_MAX, WIDE_WALK_MAX, site_capacity)
 
     packed, rstart, rlen = chunk
     CHUNK, R = packed.shape[0] * 4, rstart.shape[0]
@@ -143,14 +219,17 @@ def kernel_checks(table, chunk, k, c, device, sync, reps=20, plain_reps=2):
     rl = torch.from_numpy(rlen).to(device)
     res = {}
 
-    def run(name, kern, plain, nbytes):
-        a, b = kern(), plain()
+    def run(name, kern, plain, nbytes, kreps=reps, view=tuple):
+        b = plain()   # also the plain version's warm call
+        a = kern()
         sync()
-        err = max_abs_err(a, b)
+        if callable(nbytes):
+            nbytes = nbytes(b)
+        err = max_abs_err(view(a), view(b))
         check(err == 0, f"{name}: kernel and plain version differ "
                         f"(max abs err {err})")
-        res[name] = {"ms": cuda_ms(kern, reps, sync),
-                     "plain_ms": cuda_ms(plain, plain_reps, sync),
+        res[name] = {"ms": cuda_ms(kern, kreps, sync),
+                     "plain_ms": cuda_ms(plain, plain_reps, sync, warm=False),
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "max_abs_err": err}
         log(f"kernel {name}: " + json.dumps(
@@ -169,69 +248,150 @@ def kernel_checks(table, chunk, k, c, device, sync, reps=20, plain_reps=2):
     n_eff = min(int(d_plain.n_sites[0]), NS)
     k1_bytes = (CHUNK + 8 * R + 4 * words
                 + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    d = run("dense_probe", lambda: probe.dense_probe(*d_args),
-            lambda: probe.dense_probe_plain(*d_args), k1_bytes)
+    d = run("dense_probe[retry chunk]" if wide else "dense_probe",
+            lambda: probe.dense_probe(*d_args),
+            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20)
 
-    # K2: the site list, the k-mers at the sites, the code windows; succ,
-    # cap and SLOTS records of 16 bytes per site
-    s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k, c)
-    k2_bytes = (4 * NS + 4 + 8 * R + 4 * n_eff
-                + min(CHUNK, n_eff * (c + 3 + k))
-                + NS * 8 + NS * SLOTS * 16)
-    s = run("one_sites", lambda: sites.one_sites(*s_args),
-            lambda: sites.one_sites_plain(*s_args), k2_bytes)
+    def site_run(name, kern, plain, window, kreps=reps):
+        """A site kernel, compared on the entries it writes; its bytes
+        from the plain version's records."""
+        return run(name, kern, plain,
+                   lambda out: sites_bytes(NS, n_eff, R, CHUNK, window, out),
+                   kreps, view=sites.defined)
 
-    # K3: the read bases it copies, the site tables and the visited
-    # records; the chunk's output codes and per-read results
-    x_args = (codes, rs, rl, d.s_pos, d.n_sites, s, d.cap_read)
-    x_plain = splice.chain_splice_plain(*x_args)
-    n_rec = int(x_plain.rec_cnt.sum())
-    k3_bytes = (int(x_plain.out_len.sum()) + 9 * R + 12 * n_eff
-                + 16 * n_rec + CHUNK + 9 * R + 32)
-    x = run("chain_splice", lambda: splice.chain_splice(*x_args),
-            lambda: splice.chain_splice_plain(*x_args), k3_bytes)
+    def walk_run(st, wm):
+        w_args = (table, codes, d.kmers, d.V, d.s_pos, d.n_sites, rs, rl, k,
+                  c, st, wm)
+        # the walk scans V to the error's end; the history scratch is the
+        # kernel's own and not counted
+        name = "walk_sites" if (wm, st) == (WALK_MAX, "graph") else \
+            f"walk_sites[{st},walk_max={wm}]"
+        out = site_run(name, lambda: walk.walk_sites(*w_args),
+                       lambda: walk.walk_sites_plain(*w_args), 3 * k + c, 3)
+        used = out.rec_p < BIG
+        log(f"  {name}: {int(used.sum())} records, longest emit "
+            f"{int(out.rec_c[used].max()) if bool(used.any()) else 0} "
+            f"bases, {int((out.s_cap == CAP_ATTEMPT).sum())} walk caps")
+        return out
+
+    # K3: the read bases it copies, the slot and site tables and the
+    # visited records (12 bytes and ceil(cnt/16) emit words each); the
+    # chunk's output codes and per-read results
+    def k3(name, site_out):
+        x_args = (codes, rs, rl, d.s_pos, d.n_sites, site_out, d.cap_read)
+        vis = visited_slots(site_out, d.s_pos, d.n_sites, rs, rl, CHUNK)
+        n_rec, rec_w = record_words(site_out, vis)
+        x_plain = splice.chain_splice_plain(*x_args)
+        check(n_rec == int(x_plain.rec_cnt.sum()),
+              f"{name}: visited records {n_rec} vs "
+              f"{int(x_plain.rec_cnt.sum())}")
+        nbytes = (int(x_plain.out_len.sum()) + 9 * R + 12 * n_eff
+                  + 12 * n_rec + 4 * rec_w + CHUNK + 9 * R + 32)
+        run(name, lambda: splice.chain_splice(*x_args),
+            lambda: splice.chain_splice_plain(*x_args), nbytes, 20)
+        return x_plain, n_rec
+
+    if wide:
+        for st in ("graph", "gap-size"):
+            w = walk_run(st, WIDE_WALK_MAX)
+            k3(f"chain_splice[{st} records,walk_max={WIDE_WALK_MAX}]", w)
+        log(f"retry chunk: {int((rl > 0).sum())} reads, {int(rl.sum())} "
+            f"bases, {int(d.n_sites[0])} sites")
+        return res
+
+    # the site kernels on K1's output
+    s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k)
+    s = site_run("one_sites", lambda: sites.one_sites(*s_args, c),
+                 lambda: sites.one_sites_plain(*s_args, c), c + 3 + k, 20)
+    site_run("two_sites", lambda: two.two_sites(*s_args, c),
+             lambda: two.two_sites_plain(*s_args, c), c + 6 + k)
+    g = walk_run("graph", WALK_MAX)
+    walk_run("gap-size", WALK_MAX)
+    site_run("greedy_sites", lambda: greedy.greedy_sites(*s_args, ms, c),
+             lambda: greedy.greedy_sites_plain(*s_args, ms, c), ms + c + k,
+             3)
+    x, n_rec = k3("chain_splice", s)
+    k3("chain_splice[graph records]", g)
 
     # K4: the chunk in and out
     r_args = (x.out, rs, x.out_len)
     run("reverse_slots", lambda: (reverse.reverse_slots(*r_args),),
         lambda: (reverse.reverse_slots_plain(*r_args),),
-        2 * CHUNK + 8 * R)
+        2 * CHUNK + 8 * R, 20)
     log(f"first chunk: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
-        f"{int(d.n_sites[0])} sites, {n_rec} visited repair records")
+        f"{int(d.n_sites[0])} sites, {n_rec} visited `one` records")
     return res
 
 
-def main_path(workdir, device, sync, card, build):
-    """Corpus, kernel checks, the `-c one` CLI path, output check.
-    ``build`` is called before the first kernel is needed.  Returns the
-    per-kernel summary entries."""
-    from br_tpu_torch import cli, kernels, runtime
-    from br_tpu_torch.correct.reference import build_methods, correct_read
-    from br_tpu_torch.corpus import write_corpus
-    from br_tpu_torch.io.fasta import read_records
+def instrument(corrector):
+    """Keep, for the corrector and its wide retry sibling, every pass's
+    aux counters and CUDA events around it (no synchronisation), by
+    profile and strategy, the host seconds of the oracle, and the retry
+    sibling's first chunk as packed; the passes, the oracle and the
+    packing themselves are unchanged."""
+    import torch
 
-    fa = os.path.join(workdir, "reads.fa")
-    out = os.path.join(workdir, "out.fa")
-    t0 = time.perf_counter()
-    n_bases = write_corpus(fa, N_READS, GENOME, MEAN_LEN, MAX_LEN, SEED)
-    log(f"corpus: {N_READS} reads, {n_bases} bases "
-        f"({time.perf_counter() - t0:.1f} s)")
+    kept, oracle_s, retry = [], [], []
+    wide = corrector._get_wide()
 
-    argv = ["-i", fa, "-o", out, "-c", "one", "fasta", "-i", fa, "-k",
-            str(K), "-a", "2"]
-    args = cli.build_parser().parse_args(argv)
-    t0 = time.perf_counter()
-    solid = cli.build_set(args)
-    count_s = time.perf_counter() - t0
-    solid_frac = solid.count_ones() / float(1 << (2 * K - 1))
-    corrector = runtime.make_corrector(solid, args.corrections, args.confirm,
-                                       args.max_search, device=device)
-    seqs = [s for _d, s, _q in read_records(fa)]
-    idxs, starts = corrector._plan(seqs, set(), set())[0]
-    first = corrector._chunk_arrays(seqs, idxs, starts)
+    def first_chunk(seqs, idxs, starts, fn=wide._chunk_arrays):
+        out = fn(seqs, idxs, starts)
+        if not retry:
+            retry.append(out)
+        return out
+    wide._chunk_arrays = first_chunk
+    for cor, prof in ((corrector, "default"), (wide, "wide")):
+        for st, fn in list(cor._passes.items()):
+            def counted(table, a, rs, n, fn=fn, tag=(prof, st)):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+                ev[0].record()
+                out = fn(table, a, rs, n)
+                ev[1].record()
+                kept.append((tag, out[3], ev))
+                return out
+            cor._passes[st] = counted
 
-    build()
-    checks = kernel_checks(corrector.table, first, K, C, device, sync)
+        def timed(seqs, two_side, fn=cor._oracle_correct_many):
+            t0 = time.perf_counter()
+            out = fn(seqs, two_side)
+            oracle_s.append(time.perf_counter() - t0)
+            return out
+        cor._oracle_correct_many = timed
+    return kept, oracle_s, retry
+
+
+def cap_reasons(kept):
+    """Per profile and strategy: passes, their seconds on the device (CUDA
+    events around each pass: K1, the site kernel, K3 and the pass's small
+    PyTorch ops), capped sites by reason (aux 1-3), passes whose chunk
+    had more sites than NS (aux[7] > aux[0]) and the sites they dropped,
+    capped reads (aux 6)."""
+    import torch
+
+    out = {}
+    if not kept:
+        return out
+    aux = torch.stack([a for _t, a, _e in kept]).long().cpu().numpy()
+    for (tag, _a, ev), row in zip(kept, aux):
+        r = out.setdefault(f"{tag[0]}/{tag[1]}", {
+            "passes": 0, "device_s": 0.0, "cap_overflow": 0,
+            "cap_attempt": 0, "cap_rounds": 0, "ns_overflow_passes": 0,
+            "ns_dropped_sites": 0, "capped_reads": 0})
+        r["passes"] += 1
+        r["device_s"] += ev[0].elapsed_time(ev[1]) / 1e3
+        r["cap_overflow"] += int(row[1])
+        r["cap_attempt"] += int(row[2])
+        r["cap_rounds"] += int(row[3])
+        r["ns_overflow_passes"] += int(row[7] > row[0])
+        r["ns_dropped_sites"] += int(row[7] - row[0])
+        r["capped_reads"] += int(row[6])
+    return out
+
+
+def drive(args, solid, corrector, sync):
+    """One path through the CLI's entry points, launch counts set to 0
+    just before and read just after."""
+    from br_tpu_torch import kernels, runtime
 
     kernels.reset_launches()
     sync()
@@ -243,17 +403,80 @@ def main_path(workdir, device, sync, card, build):
                                line_width=args.line_width,
                                corrector=corrector)
     sync()
-    correct_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    return n, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def oracle_check(label, out, seqs, chain, solid, host):
+    """A seeded sample of SAMPLE reads plus every host-corrected read
+    against the port's oracle of ``chain``."""
+    from br_tpu_torch.correct.reference import build_methods, correct_read
+    from br_tpu_torch.io.fasta import read_records
+
+    got = [s for _d, s, _q in read_records(out)]
+    check(len(got) == len(seqs), f"{label}: output record count")
+    rng = np.random.default_rng(SEED)
+    sample = set(rng.choice(len(seqs), SAMPLE, replace=False).tolist())
+    sample |= set(host)
+    methods = build_methods(chain, solid, C, MS)
+    t0 = time.perf_counter()
+    bad = [i for i in sorted(sample)
+           if got[i] != correct_read(seqs[i], methods, two_side=False)]
+    check(not bad, f"{label}: {len(bad)} sampled reads differ from the "
+                   f"oracle (first {bad[:5]})")
+    changed = sum(got[i] != seqs[i] for i in sample)
+    log(f"{label} oracle check: {len(sample)} reads equal ({changed} "
+        f"corrected), {time.perf_counter() - t0:.1f} s")
+
+
+def main_path(workdir, device, sync, card, build):
+    """Corpus, kernel checks, the default-chain CLI path and its output
+    check, then the `-c one` path.  ``build`` is called before the first
+    kernel is needed.  Returns the per-kernel summary entries."""
+    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
+    from br_tpu_torch.corpus import write_corpus
+    from br_tpu_torch.io.fasta import read_records
+
+    fa = os.path.join(workdir, "reads.fa")
+    out = os.path.join(workdir, "out.fa")
+    t0 = time.perf_counter()
+    n_bases = write_corpus(fa, N_READS, GENOME, MEAN_LEN, MAX_LEN, SEED)
+    log(f"corpus: {N_READS} reads, {n_bases} bases "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # no -c: the default chain
+    argv = ["-i", fa, "-o", out, "fasta", "-i", fa, "-k", str(K), "-a", "2"]
+    args = cli.build_parser().parse_args(argv)
+    args.corrections = args.corrections or list(DEFAULT_CORRECTIONS)
+    t0 = time.perf_counter()
+    solid = cli.build_set(args)
+    count_s = time.perf_counter() - t0
+    solid_frac = solid.count_ones() / float(1 << (2 * K - 1))
+    corrector = runtime.make_corrector(solid, args.corrections, args.confirm,
+                                       args.max_search, device=device)
+    seqs = [s for _d, s, _q in read_records(fa)]
+    idxs, starts = corrector._plan(seqs, set(), set())[0]
+    first = corrector._chunk_arrays(seqs, idxs, starts)
+
+    build()
+    checks = kernel_checks(corrector.table, first, K, C, MS, device, sync)
+
+    kept, oracle_s, retry = instrument(corrector)
+    n, correct_s, launches = drive(args, solid, corrector, sync)
     st = corrector.last_stats
     # upper estimate of the kernels' share: every launch costed at the
-    # first chunk's time (retry chunks are smaller)
+    # first chunk's time (retry chunks are smaller; walk_sites at the
+    # graph default-profile time)
     kernel_s = sum(launches[m] * checks[m]["ms"] for m in launches) / 1e3
+    reasons = cap_reasons(kept)
+    log("cap reasons: " + json.dumps(reasons))
+    device_s = sum(r["device_s"] for r in reasons.values())
     log("main path: " + json.dumps({
-        "card": card, "reads": n, "bases": n_bases,
-        "solid_frac": solid_frac, "count_s": count_s,
+        "chain": args.corrections, "card": card, "reads": n,
+        "bases": n_bases, "solid_frac": solid_frac, "count_s": count_s,
         "correct_s": correct_s, "reads_per_s": n / correct_s,
         "bases_per_s": n_bases / correct_s, "kernel_s_est": kernel_s,
+        "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
+        "rest_s": correct_s - device_s - sum(oracle_s),
         "last_stats": st, "launches": launches}))
     check(n == N_READS, f"wrote {n} records, expected {N_READS}")
     for name, cnt in launches.items():
@@ -262,21 +485,35 @@ def main_path(workdir, device, sync, card, build):
     check(frac <= MAX_FALLBACK,
           f"{st['fallback']} of {st['total']} reads went to the host "
           f"(> {MAX_FALLBACK:.0%})")
+    check(bool(retry), "the main path retried no chunk on the wide sibling")
+    checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
+                                sync, wide=True))
+    oracle_check("default chain", out, seqs, args.corrections, solid,
+                 corrector.last_host)
 
-    got = [s for _d, s, _q in read_records(out)]
-    check(len(got) == N_READS, "output record count")
-    rng = np.random.default_rng(SEED)
-    sample = set(rng.choice(N_READS, SAMPLE, replace=False).tolist())
-    sample |= set(corrector.last_host)
-    methods = build_methods(["one"], solid, C, MS)
-    t0 = time.perf_counter()
-    bad = [i for i in sorted(sample)
-           if got[i] != correct_read(seqs[i], methods, two_side=False)]
-    check(not bad, f"{len(bad)} sampled reads differ from the oracle "
-                   f"(first {bad[:5]})")
-    changed = sum(got[i] != seqs[i] for i in sample)
-    log(f"oracle check: {len(sample)} reads equal ({changed} corrected), "
-        f"{time.perf_counter() - t0:.1f} s")
+    # the first slice's path: -c one on the first N_ONE reads
+    fa1 = os.path.join(workdir, "reads_one.fa")
+    out1 = os.path.join(workdir, "out_one.fa")
+    with open(fa1, "wb") as fh:
+        for i, s in enumerate(seqs[:N_ONE]):
+            fh.write(b">r%d\n%s\n" % (i, s))
+    args1 = cli.build_parser().parse_args(
+        ["-i", fa1, "-o", out1, "-c", "one", "fasta", "-i", fa, "-k",
+         str(K), "-a", "2"])
+    one = runtime.make_corrector(solid, args1.corrections, args1.confirm,
+                                 args1.max_search, device=device)
+    n1, one_s, launches1 = drive(args1, solid, one, sync)
+    st1 = one.last_stats
+    log("-c one path: " + json.dumps({
+        "reads": n1, "correct_s": one_s, "reads_per_s": n1 / one_s,
+        "last_stats": st1, "launches": launches1}))
+    check(n1 == N_ONE, f"-c one wrote {n1} records, expected {N_ONE}")
+    for name in ("dense_probe", "one_sites", "chain_splice",
+                 "reverse_slots"):
+        check(launches1[name] > 0, f"-c one: kernel {name} not launched")
+    check(st1["fallback"] / max(1, st1["total"]) <= MAX_FALLBACK,
+          f"-c one: {st1['fallback']} of {st1['total']} reads to the host")
+    oracle_check("-c one", out1, seqs[:N_ONE], ["one"], solid, one.last_host)
 
     entries = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -109,9 +109,12 @@ def test_capped_reads_retry_on_the_device():
 
 
 def test_corrector_rejects_unported_strategies():
+    """Every strategy of br is ported; a name outside them is refused."""
     solid = SolidSet.from_sequences([b"ACGT" * 10], tc.K)
-    with pytest.raises(NotImplementedError, match="A3"):
-        Torch3Corrector(solid, ["one", "two"], 5, 7, device="cpu")
+    Torch3Corrector(solid, ["one", "two", "graph", "greedy", "gap_size"], 5,
+                    7, chunk=1 << 12, nreads=8, device="cpu")
+    with pytest.raises(ValueError, match="unknown correction strategy"):
+        Torch3Corrector(solid, ["one", "three"], 5, 7, device="cpu")
 
 
 def test_cli_matches_br_tpu_cli(tmp_path):
@@ -137,14 +140,19 @@ def test_cli_matches_br_tpu_cli(tmp_path):
 
 
 def test_cli_refuses_unported_chain(tmp_path, capsys):
+    """A -c outside br's five strategies is refused before anything
+    runs (argparse's usage error)."""
     from br_tpu_torch.cli import main as t_main
 
     fa = tmp_path / "r.fa"
     fa.write_bytes(b">r\nACGTACGTACGTACGTACGT\n")
-    assert t_main(["-i", str(fa), "-o", str(tmp_path / "o.fa"), "--device",
-                   "cpu", "fasta", "-i", str(fa), "-k", "13", "-a",
-                   "2"]) == 2
-    assert "pass -c one" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        t_main(["-i", str(fa), "-o", str(tmp_path / "o.fa"), "-c", "three",
+                "--device", "cpu", "fasta", "-i", str(fa), "-k", "13", "-a",
+                "2"])
+    assert e.value.code == 2
+    assert "invalid choice: 'three'" in capsys.readouterr().err
+    assert not (tmp_path / "o.fa").exists()
 
 
 def test_corpus_matches_script(tmp_path):

@@ -15,6 +15,9 @@ _PROBE = """
 import sys
 import br_tpu_torch, br_tpu_torch.cli, br_tpu_torch.runtime
 import br_tpu_torch.correct.engine3, br_tpu_torch.corpus, br_tpu_torch.kernels
+import br_tpu_torch.correct.two, br_tpu_torch.correct.walk
+import br_tpu_torch.correct.greedy, br_tpu_torch.correct.reference
+import br_tpu_torch.correct.alignment
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'br_tpu'))

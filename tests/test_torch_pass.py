@@ -163,7 +163,8 @@ def test_exact_fill_keeps_last_emitted_base():
     rec[0].fill_(BIG)
     rec[:, 0] = torch.tensor([19, 1, 1, 2])   # p, count, consumed, base
     sites = Sites(torch.full((NS,), NS, dtype=torch.int32),
-                  torch.zeros(NS, dtype=torch.int32), *rec)
+                  torch.zeros(NS, dtype=torch.int32), rec[0], rec[1],
+                  rec[2], rec[3][:, None].contiguous())
     sp = chain_splice(codes, rstart, rlen, s_pos,
                       torch.tensor([1], dtype=torch.int32), sites,
                       torch.zeros(R, dtype=torch.bool))
