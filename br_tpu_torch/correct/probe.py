@@ -23,8 +23,9 @@ from br_tpu_torch import kernels
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.layout import BIG, check_slots
 
-#: positions per K1 tile (K1_THREADS in dense_probe.cu).
-TILE = 1024
+#: positions per K1 tile (K1_TILE in dense_probe.cu: 256 threads of 16
+#: consecutive positions each).
+TILE = 4096
 
 
 class Dense(NamedTuple):
@@ -64,12 +65,15 @@ def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     vraw = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     V = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     T = torch.empty(CHUNK, dtype=torch.bool, device=dev)
-    s_pos = torch.full((NS,), BIG, dtype=torch.int32, device=dev)
+    s_pos = torch.empty(NS, dtype=torch.int32, device=dev)  # BIG: kernel
     n_sites = torch.empty(1, dtype=torch.int32, device=dev)
-    cap_read = torch.zeros(R, dtype=torch.bool, device=dev)
     ntiles = (CHUNK + TILE - 1) // TILE
-    # look-back state per tile, then the tile ticket (zeroed)
-    scratch = torch.zeros(ntiles + 1, dtype=torch.int64, device=dev)
+    # one zero fill: the look-back state per tile, the tile ticket, and
+    # cap_read (bytes, which no tile writes for a read without a site of
+    # rank >= NS)
+    scratch = torch.zeros(ntiles + 1 + (R + 7) // 8, dtype=torch.int64,
+                          device=dev)
+    cap_read = scratch[ntiles + 1:].view(torch.uint8)[:R].view(torch.bool)
     kernels.launch(
         "dense_probe", codes, table, rstart, rlen, CHUNK, R, k, NS, kmers,
         vraw, V, T, s_pos, cap_read, n_sites, scratch, scratch[ntiles:])

@@ -32,8 +32,12 @@ import torch
 
 from br_tpu_torch import kernels
 from br_tpu_torch.correct.layout import (
-    BIG, CAP_ATTEMPT, CAP_OVERFLOW, CAP_ROUNDS, SLOTS)
+    BIG, CAP_ATTEMPT, CAP_OVERFLOW, CAP_ROUNDS, SLOTS, check_slots)
 from br_tpu_torch.correct.sites import Sites
+
+
+#: sites per window of the kernel's chain walk (K3_W in chain_splice.cu).
+WINDOW = 512
 
 
 class Spliced(NamedTuple):
@@ -52,6 +56,7 @@ def chain_splice(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
     kernels.check(codes, "codes", torch.uint8, dev)
     kernels.check(rstart, "rstart", torch.int32, dev)
     kernels.check(rlen, "rlen", torch.int32, dev, R)
+    check_slots(rstart)
     kernels.check(s_pos, "s_pos", torch.int32, dev)
     kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
     kernels.check(cap_dense, "cap_dense", torch.bool, dev, R)
@@ -76,17 +81,21 @@ def _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
                        cap_dense) -> Spliced:
     CHUNK, R, NS, dev = (codes.shape[0], rstart.shape[0], s_pos.shape[0],
                          codes.device)
-    # segment table scratch, one region per read (its site range)
-    seg = torch.empty((4, NS * SLOTS), dtype=torch.int32, device=dev)
     EW = sites.rec_e.shape[1]
-    out = torch.zeros(CHUNK, dtype=torch.uint8, device=dev)
+    # segment tables (output offset, verbatim start and length, record
+    # row), one region per read (its site range), and per read its body
+    # length, last record end, table start and size: written by the walk
+    # kernel, read by the copy kernel, which writes every position of out
+    seg = torch.empty((4, NS * SLOTS), dtype=torch.int32, device=dev)
+    rtab = torch.empty((4, R), dtype=torch.int32, device=dev)
+    out = torch.empty(CHUNK, dtype=torch.uint8, device=dev)
     out_len = torch.empty(R, dtype=torch.int32, device=dev)
     cap = torch.empty(R, dtype=torch.bool, device=dev)
     rec_cnt = torch.empty(R, dtype=torch.int32, device=dev)
     aux = torch.zeros(8, dtype=torch.int32, device=dev)
     kernels.launch(
         "chain_splice", codes, rstart, rlen, s_pos, n_sites, *sites,
-        cap_dense, CHUNK, R, NS, EW, *seg, out, out_len, cap, rec_cnt,
+        cap_dense, CHUNK, R, NS, EW, seg, rtab, out, out_len, cap, rec_cnt,
         aux)
     return Spliced(out, out_len, cap, rec_cnt, aux)
 

@@ -5,30 +5,86 @@
 // br_tpu/correct/engine3.py:1387-1448 (read geometry fills, rolling
 // k-mers, bitfield probe, V/T masks, cumsum(T), the NS site cap).
 //
-// Per position p of the chunk (one thread each): the read slot r that
-// holds p (binary search of rstart, staged in shared memory), the
-// end-indexed k-mer of codes[p-k+1 .. p] (zero where p is fewer than k-1
-// bases into its slot), its canonical form (popcount parity, 2-bit-group
-// reversal) and its solid bit (one 4-byte __ldg of the bitfield), then
+// Per position p: the read slot r that holds p (rstart staged in shared
+// memory), the end-indexed k-mer of codes[p-k+1 .. p] (zero where p is
+// fewer than k-1 bases into its slot), its canonical form (popcount
+// parity, 2-bit-group reversal) and its solid bit (one 4-byte __ldg of
+// the bitfield), then
 //   Vraw = probe, V = Vraw & k-1 <= pin < rlen, T = V[p-1] & !V[p] & pin >= k.
-// The same launch turns T into the site list: a block-wide scan gives
-// each transition its rank inside its tile, a decoupled look-back over
-// the tiles (taken in launch order through an atomic ticket, so a tile
-// only ever waits on tiles already running) gives the tile's offset, and
-// site q < NS is written to s_pos[q]; a site of rank >= NS caps its read
-// (cap_read), as engine3.py:1444-1448 does.  No host synchronisation.
+// The same launch turns T into the site list: site q < NS is written to
+// s_pos[q]; a site of rank >= NS caps its read (cap_read), as
+// engine3.py:1444-1448 does; the tile that holds the chunk's end writes
+// n_sites and fills s_pos[n_sites:NS] with BIG (no other tile writes
+// there).  No host synchronisation.
 //
 // Bound on the H100: bytes.  It reads the codes (1 B/position) and
-// writes k-mers, Vraw, V, T (7 B/position); the probes hit a bitfield of
-// 2^(2k-6) bytes, 4 MiB at k=13, which stays in the 50 MB L2.  The
-// design keeps each code window in L1 (neighbouring threads share it),
-// probes once per position (the previous position's bit comes from
-// shared memory), and spends no second pass on the scan.
+// writes k-mers, Vraw, V, T (7 B/position), 8 MB at 2^20; the probes hit
+// a bitfield of 2^(2k-6) bytes, 4 MiB at k=13, which stays in the 50 MB
+// L2.  The first design gave each of 1024 threads of a tile one position:
+// a 9-step slot search, 13 byte loads and 4 scalar stores per position,
+// 1024 tiles whose site offsets came from a look-back run by one thread,
+// one predecessor (a volatile device-memory load) per step.  Its time
+// spread 2x between calls on one chunk (0.060-0.133 ms).
+//
+// This design gives each of 256 threads a run of K1_RUN = 16 consecutive
+// positions (a tile of 4096, 256 tiles at 2^20, about two per SM):
+//  * one 16-byte load of the run's codes, its k-1 halo from the previous
+//    lane by a shuffle (lane 0 loads it); the k-mer rolls in a register,
+//    one shift per position, and the run's 16 probes are issued together;
+//  * one slot search per run, advanced position by position;
+//  * k-mers as four int4 stores, Vraw, V, T as one 16-byte store each;
+//  * T's predecessor bit from the previous lane's last probe (lane 0
+//    probes its own predecessor k-mer, the tile-edge probe);
+//  * the site ranks by a thread count, a warp scan and a block scan; the
+//    tile's offset by a decoupled look-back that a whole warp runs: 32
+//    predecessors' states read at once, a ballot for the nearest one with
+//    a PREFIX, a warp sum of the aggregates up to it (as CUB's look-back).
+//    Tiles take their index from an atomic ticket, so a tile only ever
+//    waits on tiles already running.
+// The wrapper keeps one zero fill: the look-back states, the ticket and
+// cap_read (a read without a site of rank >= NS is written by no tile).
 #include "common.cuh"
 
-#define K1_THREADS 1024
+#define K1_THREADS 256
+#define K1_RUN 16
+#define K1_TILE (K1_THREADS * K1_RUN)
+#define K1_WARPS (K1_THREADS / 32)
 #define FLAG_AGG (1ull << 62)
 #define FLAG_PREFIX (1ull << 63)
+#define FULL_MASK 0xffffffffu
+
+// the 16 codes of positions [p, p+16) as four little-endian words; bytes
+// outside the chunk read as 0
+__device__ __forceinline__ void k1_load_run(const uint8_t* __restrict__ codes,
+                                            int p, int CHUNK, bool vec,
+                                            uint32_t w[4]) {
+  if (vec && p >= 0 && p + K1_RUN <= CHUNK) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes + p));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < K1_RUN; ++i)
+    if (p + i >= 0 && p + i < CHUNK)
+      w[i >> 2] |= (uint32_t)codes[p + i] << (8 * (i & 3));
+}
+
+__device__ __forceinline__ uint32_t k1_code(const uint32_t w[4], int i) {
+  return (w[i >> 2] >> (8 * (i & 3))) & 3u;
+}
+
+// bits [0, 16) of m as 16 bytes of 0/1
+__device__ __forceinline__ uint4 k1_bytes(uint32_t m) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t b = (m >> (4 * j)) & 0xfu;
+    w[j] = (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
 __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
     const uint8_t* __restrict__ codes, const uint32_t* __restrict__ table,
@@ -42,13 +98,10 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
     unsigned int* __restrict__ ticket) {
   __shared__ int32_t sh_start[BR_MAX_R];
   __shared__ int32_t sh_len[BR_MAX_R];
-  __shared__ uint8_t sh_v[K1_THREADS];
-  __shared__ int sh_warp[K1_THREADS / 32];
-  __shared__ int sh_tile;
-  __shared__ int sh_total;
-  __shared__ int sh_excl;
+  __shared__ int sh_warp[K1_WARPS];
+  __shared__ int sh_tile, sh_total, sh_excl;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) sh_tile = (int)atomicAdd(ticket, 1u);
   for (int r = tid; r < R; r += K1_THREADS) {
     sh_start[r] = rstart[r];
@@ -56,92 +109,157 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   }
   __syncthreads();
   const int tile = sh_tile;
-  const int ntiles = (CHUNK + K1_THREADS - 1) / K1_THREADS;
-  const int p = tile * K1_THREADS + tid;
+  const int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
+  const int p0 = tile * K1_TILE + tid * K1_RUN;
   const uint32_t kmask = br_kmask(k);
+  const bool vec = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
 
-  // read geometry of p
-  bool in_chunk = p < CHUNK;
-  int rid = in_chunk ? br_slot_of(sh_start, R, p) : -1;
-  int start = rid >= 0 ? sh_start[rid] : 0;
-  int len = rid >= 0 ? sh_len[rid] : 0;
-  int pin = p - start;
+  // the run's codes and the 16 before it (the previous lane's run)
+  uint32_t cur[4], prev[4];
+  k1_load_run(codes, p0, CHUNK, vec, cur);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) prev[i] = __shfl_up_sync(FULL_MASK, cur[i], 1);
+  if (lane == 0) k1_load_run(codes, p0 - K1_RUN, CHUNK, vec, prev);
 
+  // rolling k-mers: the predecessor's, then one per position; all probes
+  // issued together
   uint32_t km = 0;
-  bool v = false;
-  if (in_chunk && pin >= k - 1) {
-    for (int t = k - 1; t >= 0; --t) km = (km << 2) | (codes[p - t] & 3u);
-    v = br_probe(table, km, k);
+#pragma unroll
+  for (int i = 0; i < K1_RUN; ++i) km = ((km << 2) | k1_code(prev, i)) & kmask;
+  const uint32_t km_prev = km;
+  uint32_t kms[K1_RUN];
+#pragma unroll
+  for (int i = 0; i < K1_RUN; ++i) {
+    km = ((km << 2) | k1_code(cur, i)) & kmask;
+    kms[i] = km;
   }
-  sh_v[tid] = v;
-  __syncthreads();
+  uint32_t hit = 0;
+#pragma unroll
+  for (int i = 0; i < K1_RUN; ++i)
+    hit |= (uint32_t)br_probe(table, kms[i], k) << i;
+  // solid bit of the k-mer ending at p0-1 (meaningful where T needs it:
+  // pin >= k, so p0-1 is in the same slot and at least k-1 bases in)
+  uint32_t hprev = __shfl_up_sync(FULL_MASK, hit >> (K1_RUN - 1), 1) & 1u;
+  if (lane == 0) hprev = br_probe(table, km_prev, k);
 
-  bool t_site = false;
-  if (in_chunk && pin >= k && pin < len) {
-    bool vprev;
-    if (tid > 0) {
-      vprev = sh_v[tid - 1];
-    } else {  // the tile's first position: probe its predecessor here
-      uint32_t kp = 0;
-      for (int t = k; t >= 1; --t) kp = (kp << 2) | (codes[p - t] & 3u);
-      vprev = br_probe(table, kp & kmask, k);
+  // read geometry, masks
+  const int rid0 = p0 < CHUNK ? br_slot_of(sh_start, R, p0) : -1;
+  int rid = rid0;
+  uint32_t fullm = 0, vm = 0, tm = 0;
+#pragma unroll
+  for (int i = 0; i < K1_RUN; ++i) {
+    const int p = p0 + i;
+    while (rid + 1 < R && sh_start[rid + 1] <= p) ++rid;
+    const int pin = p - (rid >= 0 ? sh_start[rid] : 0);
+    const int len = rid >= 0 ? sh_len[rid] : 0;
+    const bool inc = p < CHUNK;
+    const bool h = (hit >> i) & 1u;
+    const bool hp = i ? ((hit >> (i - 1)) & 1u) : hprev;
+    fullm |= (uint32_t)(inc && pin >= k - 1) << i;
+    vm |= (uint32_t)(inc && h && pin >= k - 1 && pin < len) << i;
+    tm |= (uint32_t)(inc && hp && !h && pin >= k && pin < len) << i;
+  }
+  const uint32_t vrawm = fullm & hit;
+
+  if (p0 + K1_RUN <= CHUNK) {
+    int4* kp = reinterpret_cast<int4*>(kmers + p0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = 4 * j;
+      kp[j] = make_int4((fullm >> b) & 1u ? (int)kms[b] : 0,
+                        (fullm >> (b + 1)) & 1u ? (int)kms[b + 1] : 0,
+                        (fullm >> (b + 2)) & 1u ? (int)kms[b + 2] : 0,
+                        (fullm >> (b + 3)) & 1u ? (int)kms[b + 3] : 0);
     }
-    t_site = vprev && !v;
-  }
-  if (in_chunk) {
-    kmers[p] = (int32_t)km;
-    vraw[p] = v;
-    V[p] = v && pin >= k - 1 && pin < len;
-    T[p] = t_site;
+    *reinterpret_cast<uint4*>(vraw + p0) = k1_bytes(vrawm);
+    *reinterpret_cast<uint4*>(V + p0) = k1_bytes(vm);
+    *reinterpret_cast<uint4*>(T + p0) = k1_bytes(tm);
+  } else {
+    for (int i = 0; i < K1_RUN && p0 + i < CHUNK; ++i) {
+      kmers[p0 + i] = (fullm >> i) & 1u ? (int32_t)kms[i] : 0;
+      vraw[p0 + i] = (vrawm >> i) & 1u;
+      V[p0 + i] = (vm >> i) & 1u;
+      T[p0 + i] = (tm >> i) & 1u;
+    }
   }
 
-  // rank of this transition inside the tile
-  const int lane = tid & 31, warp = tid >> 5;
-  unsigned ballot = __ballot_sync(0xffffffffu, t_site);
-  int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) sh_warp[warp] = __popc(ballot);
+  // rank of the run's first transition inside the tile
+  const int cnt = __popc(tm);
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) sh_warp[warp] = incl;
   __syncthreads();
+
+  // warp 0: the warps' offsets, the tile's total, then the look-back
   if (warp == 0) {
-    int c = lane < K1_THREADS / 32 ? sh_warp[lane] : 0;
-    int incl = c;
+    const int c = lane < K1_WARPS ? sh_warp[lane] : 0;
+    int wincl = c;
+#pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
+      const int y = __shfl_up_sync(FULL_MASK, wincl, off);
+      if (lane >= off) wincl += y;
     }
-    if (lane < K1_THREADS / 32) sh_warp[lane] = incl - c;
-    if (lane == 31) sh_total = incl;
-  }
-  __syncthreads();
-
-  // decoupled look-back: the tile's offset among all transitions
-  if (tid == 0) {
-    const int total = sh_total;
+    if (lane < K1_WARPS) sh_warp[lane] = wincl - c;
+    const int total = __shfl_sync(FULL_MASK, wincl, 31);
     int excl = 0;
     if (tile == 0) {
-      atomicExch(&tile_state[0], FLAG_PREFIX | (unsigned long long)total);
+      if (lane == 0)
+        atomicExch(&tile_state[0], FLAG_PREFIX | (unsigned long long)total);
     } else {
-      atomicExch(&tile_state[tile], FLAG_AGG | (unsigned long long)total);
-      int j = tile - 1;
-      while (true) {
-        unsigned long long s =
-            *((volatile unsigned long long*)&tile_state[j]);
-        if (s == 0) continue;
-        excl += (int)(s & 0xffffffffull);
-        if (s & FLAG_PREFIX) break;
-        --j;
+      if (lane == 0)
+        atomicExch(&tile_state[tile], FLAG_AGG | (unsigned long long)total);
+      for (int base = tile - 1;; base -= 32) {
+        const int j = base - lane;  // lane 0: the nearest predecessor
+        unsigned long long s = FLAG_PREFIX;  // before tile 0: prefix 0
+        if (j >= 0) {
+          do {
+            s = *reinterpret_cast<volatile unsigned long long*>(
+                &tile_state[j]);
+          } while (s == 0);
+        }
+        const unsigned pm = __ballot_sync(FULL_MASK, (s & FLAG_PREFIX) != 0);
+        int v = (int)(s & 0xffffffffull);
+        if (pm && lane > __ffs(pm) - 1) v = 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(FULL_MASK, v, off);
+        excl += v;
+        if (pm) break;
       }
-      atomicExch(&tile_state[tile],
-                 FLAG_PREFIX | (unsigned long long)(excl + total));
+      if (lane == 0)
+        atomicExch(&tile_state[tile],
+                   FLAG_PREFIX | (unsigned long long)(excl + total));
     }
-    sh_excl = excl;
-    if (tile == ntiles - 1) n_sites[0] = excl + total;
+    if (lane == 0) {
+      sh_excl = excl;
+      sh_total = total;
+      if (tile == ntiles - 1) n_sites[0] = excl + total;
+    }
   }
   __syncthreads();
 
-  if (t_site) {
-    int q = sh_excl + sh_warp[warp] + in_warp;
-    if (q < NS) s_pos[q] = p;
-    else cap_read[rid] = 1;
+  // the run's sites
+  int q = sh_excl + sh_warp[warp] + incl - cnt;
+  if (tm) {
+    rid = rid0;
+    for (uint32_t m = tm; m; m &= m - 1, ++q) {
+      const int p = p0 + __ffs(m) - 1;
+      if (q < NS) {
+        s_pos[q] = p;
+      } else {
+        while (rid + 1 < R && sh_start[rid + 1] <= p) ++rid;
+        cap_read[rid] = 1;
+      }
+    }
+  }
+  // the chunk's last tile: BIG past the listed sites
+  if (tile == ntiles - 1) {
+    for (int i = min(sh_excl + sh_total, NS) + tid; i < NS; i += K1_THREADS)
+      s_pos[i] = BR_BIG;
   }
 }
 
@@ -150,7 +268,7 @@ extern "C" int br_dense_probe(
     const void* rlen, int CHUNK, int R, int k, int NS, void* kmers,
     void* vraw, void* V, void* T, void* s_pos, void* cap_read,
     void* n_sites, void* tile_state, void* ticket, void* stream) {
-  int ntiles = (CHUNK + K1_THREADS - 1) / K1_THREADS;
+  int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
   dense_probe_kernel<<<ntiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint32_t*)table,
       (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, NS,

@@ -8,9 +8,11 @@ pass as ``c_void_p``.  ``build_all`` starts one ``nvcc`` per source, all
 at once.  Libraries are named by a hash of their source, headers and
 flags, so an edited source is rebuilt.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one right after its kernel launched and nowhere else.  Nothing here
-imports or builds anything when the module is imported.
+``LAUNCHES`` counts, per kernel, the device launches its wrapper made; a
+wrapper adds them right after its entry point launched and nowhere else
+(two for ``chain_splice``, whose entry point launches a walk kernel and a
+copy kernel).  Nothing here imports or builds anything when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ KERNELS = {
                   + "p"),
     "chain_splice": ("chain_splice.cu", "br_chain_splice",
                      "ppp" + "pppp" + "pppp" + "p" + "iiii"
-                     + "ppppp" + "pppp" + "p"),
+                     + "pp" + "ppppp" + "p"),
     "reverse_slots": ("reverse_slots.cu", "br_reverse_slots",
                       "pppp" + "ii" + "p"),
     "two_sites": ("two_sites.cu", "br_two_sites", "pppppppiiiii" + "pppppp"
@@ -48,7 +50,10 @@ KERNELS = {
                      + "iiiiii" + "pppppp" + "p"),
 }
 
-#: launches per kernel since the last ``reset_launches``.
+#: device kernels an entry point launches per call, where more than one.
+PER_CALL = {"chain_splice": 2}
+
+#: device launches per kernel since the last ``reset_launches``.
 LAUNCHES = {name: 0 for name in KERNELS}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,8 +140,8 @@ def library(name: str):
 
 def launch(name: str, *args) -> None:
     """Call a kernel's C entry point, tensors passed as device pointers
-    and PyTorch's current stream of their device appended; count the
-    launch; raise on a CUDA error (the entry point returns
+    and PyTorch's current stream of their device appended; count its
+    launches; raise on a CUDA error (the entry point returns
     ``cudaGetLastError()``)."""
     lib = library(name)
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
@@ -146,7 +151,7 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.br_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += PER_CALL.get(name, 1)
 
 
 def on_cuda(t) -> bool:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (br_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k1-baseline CSRC_DIR]
 
 In order, each phase ending the run with a nonzero exit code if it fails:
 
@@ -19,8 +19,16 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    the graph records (one-word and multi-word emits), K4; each held
    against its plain PyTorch version on the same inputs (a site kernel
    through sites.defined, the entries it writes); the results are
-   integers and must match exactly; times from CUDA events, the plain
-   versions' after a first warm call;
+   integers and must match exactly; times from CUDA events: a kernel's
+   with its calls queued behind a spin kernel (device time), and also as
+   the first versions of this script timed them, with the host launching
+   in the loop (call_ms); the plain versions' after a first warm call;
+   each kernel's ms over its bound; beside K3's time the reads that set
+   it (the longest, and the one with the most visited sites); with
+   --k1-baseline, K1 as built from another tree's dense_probe.cu (its
+   first design: 1024-position tiles, three fills in its wrapper) is
+   checked too and timed beside this tree's, by the same method, in the
+   order baseline, this tree, this tree, baseline;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, make_corrector, run_correction) with
@@ -28,21 +36,25 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    reason and strategy; fails if a kernel was not launched or more than
    5 % of the reads went to the host;
 6. the wide profile's kernel checks, on the main path's first retry
-   chunk (2^18 positions, 32 slots, walk_max 2040): K1, K6 in both modes
-   and K3 on their records, as in 4;
+   chunk (2^18 positions, 32 slots, walk_max 2040): K1 (and its
+   baseline), K6 in both modes and K3 on their records, as in 4;
 7. output check: a seeded sample of 100 reads, and every read the device
    did not finish, against the port's scalar oracle of the default chain;
 8. the first slice's path, `-c one`, on the first 500 reads, with its own
    launch counts, fallback limit and oracle check.
 
-The line before the last is the kernel summary {"kernels": [...]}; the
-last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
+The line before the last is the kernel summary {"kernels": [...]}: a
+kernel's ms is the time of one call of its entry point, and its launches
+count device kernels (two a call for chain_splice, a walk kernel and a
+copy kernel).  The last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 br_tpu_torch package beside it, the script exits nonzero and prints no
 result.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -118,9 +130,18 @@ def toolchain():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; triton: {triton_ok}")
 
 
-def cuda_ms(fn, reps, sync, warm=True):
+def cuda_ms(fn, reps, sync, warm=True, queued=False):
     """Mean milliseconds per call, by CUDA events around `reps` calls,
-    after one warm call unless the caller made it."""
+    after one warm call unless the caller made it.
+
+    Without ``queued`` the host launches while the device runs, so where
+    the host's time per call (the wrapper's checks, allocations, the
+    ctypes call) is longer than the device's, that is what is measured.
+    With ``queued`` (the kernels' times) the calls are put on the stream
+    behind a spin kernel long enough to cover their launch, so the events
+    time the device's work back to back: a run in which the device
+    reached the first event before the last call was queued is repeated
+    behind a spin four times as long."""
     import torch
 
     if warm:
@@ -128,11 +149,26 @@ def cuda_ms(fn, reps, sync, warm=True):
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    cycles = 0
+    if queued:
+        t0 = time.perf_counter()
         fn()
-    end.record()
-    sync()
+        cycles = int(2e9 * max(1e-3, 2 * reps * (time.perf_counter() - t0)))
+        sync()
+    for _ in range(5):
+        if cycles:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        late = cycles and start.query()
+        sync()
+        if not late:
+            break
+        cycles *= 4
+    check(not late, "the host could not queue the timed calls ahead of "
+                    "the device")
     return start.elapsed_time(end) / reps
 
 
@@ -172,12 +208,11 @@ def sites_bytes(NS, n_eff, R, CHUNK, window, out):
             + NS * 8 + NS * SLOTS * 4 + 8 * n_used + 4 * words)
 
 
-def visited_slots(site_out, s_pos, n_sites, rs, rl, CHUNK):
-    """(NS*SLOTS,) bool: the slots of the sites K3's chain walk visits
-    (every read's head site and its successors, as chain_splice_plain)."""
+def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
+    """K3's chain walk (every read's head site and its successors, as
+    chain_splice_plain): the (NS,) bool mask of the visited sites, and per
+    read its listed and its visited sites."""
     import torch
-
-    from br_tpu_torch.correct.layout import SLOTS
 
     NS = s_pos.shape[0]
     sp = s_pos[:min(int(n_sites[0]), NS)].long()
@@ -193,14 +228,62 @@ def visited_slots(site_out, s_pos, n_sites, rs, rl, CHUNK):
         visited[cur[live]] = True
         nx = succ[cur.clamp(max=NS - 1)]
         cur = torch.where(live & (nx > cur), nx, NS)
-    return visited.repeat_interleave(SLOTS)
+    cum = torch.cat([visited.new_zeros(1, dtype=torch.long),
+                     torch.cumsum(visited.long(), 0)])
+    return visited, hi - lo, cum[hi] - cum[lo]
+
+
+def k1_baseline(csrc):
+    """K1 as built from ``csrc``/dense_probe.cu, another version of it
+    with the same C entry point, called the way its first design's
+    wrapper called it: 1024-position tiles, s_pos filled with BIG and
+    cap_read and the look-back state with zeros, three fills inside the
+    call.  Built with this tree's nvcc flags into the build directory;
+    calls are not counted in kernels.LAUNCHES."""
+    import torch
+
+    from br_tpu_torch import kernels
+    from br_tpu_torch.correct.layout import BIG
+    from br_tpu_torch.correct.probe import Dense
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = kernels.BUILD_DIR / "libdense_probe_baseline.so"
+    r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", csrc,
+                        "-o", str(lib_path),
+                        os.path.join(csrc, "dense_probe.cu")],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"K1 baseline build failed:\n{r.stdout}"
+                             f"{r.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).br_dense_probe
+    fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
+                   for ch in kernels.KERNELS["dense_probe"][2]]
+    fn.restype = ctypes.c_int
+    tile = 1024
+
+    def call(table, codes, rstart, rlen, k, NS):
+        CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
+        out = [torch.empty(CHUNK, dtype=dt, device=dev)
+               for dt in (torch.int32, torch.bool, torch.bool, torch.bool)]
+        s_pos = torch.full((NS,), BIG, dtype=torch.int32, device=dev)
+        n_sites = torch.empty(1, dtype=torch.int32, device=dev)
+        cap_read = torch.zeros(R, dtype=torch.bool, device=dev)
+        ntiles = (CHUNK + tile - 1) // tile
+        scratch = torch.zeros(ntiles + 1, dtype=torch.int64, device=dev)
+        args = [codes, table, rstart, rlen, CHUNK, R, k, NS, *out, s_pos,
+                cap_read, n_sites, scratch, scratch[ntiles:]]
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], kernels.stream_of(dev))
+        check(err == 0, f"K1 baseline launch failed ({err})")
+        return Dense(*out, s_pos, n_sites, cap_read)
+    return call
 
 
 def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
-                  reps=10, plain_reps=2):
+                  reps=10, plain_reps=2, baseline=None):
     """Kernels against their plain versions on one chunk: K1-K7 at the
     default walk profile, or (``wide``, on a retry chunk) K1, K6 in both
-    modes at walk_max 2040 and K3 on their records.  Returns {name: {ms,
+    modes at walk_max 2040 and K3 on their records; ``baseline`` (from
+    k1_baseline) is checked and timed beside K1.  Returns {name: {ms,
     plain_ms, bound_ms, max_abs_err}}; names with a bracket are a
     kernel's further configurations."""
     import torch
@@ -209,7 +292,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
     from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
                                       two, walk)
     from br_tpu_torch.correct.layout import (
-        BIG, CAP_ATTEMPT, WALK_MAX, WIDE_WALK_MAX, site_capacity)
+        BIG, CAP_ATTEMPT, SLOTS, WALK_MAX, WIDE_WALK_MAX, site_capacity)
 
     packed, rstart, rlen = chunk
     CHUNK, R = packed.shape[0] * 4, rstart.shape[0]
@@ -228,14 +311,17 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
         err = max_abs_err(view(a), view(b))
         check(err == 0, f"{name}: kernel and plain version differ "
                         f"(max abs err {err})")
-        res[name] = {"ms": cuda_ms(kern, kreps, sync),
+        res[name] = {"ms": cuda_ms(kern, kreps, sync, queued=True),
+                     "call_ms": cuda_ms(kern, kreps, sync, warm=False),
                      "plain_ms": cuda_ms(plain, plain_reps, sync, warm=False),
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "max_abs_err": err}
         log(f"kernel {name}: " + json.dumps(
             {"kernel": name, "kernel_ms": res[name]["ms"],
+             "call_ms": res[name]["call_ms"],
              "plain_ms": res[name]["plain_ms"],
-             "bound_ms": res[name]["bound_ms"]}))
+             "bound_ms": res[name]["bound_ms"],
+             "ms_over_bound": res[name]["ms"] / res[name]["bound_ms"]}))
         return b
 
     # K1: codes, slot tables, the distinct bitfield words the probes read;
@@ -248,9 +334,20 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
     n_eff = min(int(d_plain.n_sites[0]), NS)
     k1_bytes = (CHUNK + 8 * R + 4 * words
                 + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    d = run("dense_probe[retry chunk]" if wide else "dense_probe",
-            lambda: probe.dense_probe(*d_args),
+    k1_name = "dense_probe[retry chunk]" if wide else "dense_probe"
+    d = run(k1_name, lambda: probe.dense_probe(*d_args),
             lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20)
+    if baseline is not None:
+        err = max_abs_err(baseline(*d_args), d_plain)
+        check(err == 0, f"{k1_name}: the baseline and the plain version "
+                        f"differ (max abs err {err})")
+        fns = (lambda: baseline(*d_args), lambda: probe.dense_probe(*d_args))
+        t = [cuda_ms(fns[i], 20, sync, queued=True) for i in (0, 1, 1, 0)]
+        log(f"kernel {k1_name} beside its baseline: " + json.dumps(
+            {"baseline_ms": [t[0], t[3]], "kernel_ms": [t[1], t[2]],
+             "baseline_call_ms": cuda_ms(fns[0], 20, sync, warm=False),
+             "kernel_call_ms": cuda_ms(fns[1], 20, sync, warm=False),
+             "bound_ms": res[k1_name]["bound_ms"]}))
 
     def site_run(name, kern, plain, window, kreps=reps):
         """A site kernel, compared on the entries it writes; its bytes
@@ -276,11 +373,14 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
 
     # K3: the read bases it copies, the slot and site tables and the
     # visited records (12 bytes and ceil(cnt/16) emit words each); the
-    # chunk's output codes and per-read results
+    # chunk's output codes and per-read results.  What sets its time is
+    # the read with the longest chain: logged beside it.
     def k3(name, site_out):
         x_args = (codes, rs, rl, d.s_pos, d.n_sites, site_out, d.cap_read)
-        vis = visited_slots(site_out, d.s_pos, d.n_sites, rs, rl, CHUNK)
-        n_rec, rec_w = record_words(site_out, vis)
+        vis, listed, visits = chain_visits(site_out, d.s_pos, d.n_sites, rs,
+                                           rl, CHUNK)
+        n_rec, rec_w = record_words(site_out,
+                                    vis.repeat_interleave(SLOTS))
         x_plain = splice.chain_splice_plain(*x_args)
         check(n_rec == int(x_plain.rec_cnt.sum()),
               f"{name}: visited records {n_rec} vs "
@@ -289,6 +389,12 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
                   + 12 * n_rec + 4 * rec_w + CHUNK + 9 * R + 32)
         run(name, lambda: splice.chain_splice(*x_args),
             lambda: splice.chain_splice_plain(*x_args), nbytes, 20)
+        longest, most = int(rl.argmax()), int(visits.argmax())
+        log(f"  {name}: {res[name]['ms']:.4f} ms; longest read "
+            f"{int(rl[longest])} bases, {int(listed[longest])} listed "
+            f"sites, {int(visits[longest])} visited; most visited "
+            f"{int(visits[most])} of {int(listed[most])} listed "
+            f"({int(rl[most])} bases); windows of {splice.WINDOW} sites")
         return x_plain, n_rec
 
     if wide:
@@ -428,11 +534,12 @@ def oracle_check(label, out, seqs, chain, solid, host):
         f"corrected), {time.perf_counter() - t0:.1f} s")
 
 
-def main_path(workdir, device, sync, card, build):
+def main_path(workdir, device, sync, card, build, k1_base=None):
     """Corpus, kernel checks, the default-chain CLI path and its output
     check, then the `-c one` path.  ``build`` is called before the first
-    kernel is needed.  Returns the per-kernel summary entries."""
-    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
+    kernel is needed; ``k1_base`` is a K1 baseline's csrc directory or
+    None.  Returns the per-kernel summary entries."""
+    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, kernels, runtime
     from br_tpu_torch.corpus import write_corpus
     from br_tpu_torch.io.fasta import read_records
 
@@ -458,15 +565,18 @@ def main_path(workdir, device, sync, card, build):
     first = corrector._chunk_arrays(seqs, idxs, starts)
 
     build()
-    checks = kernel_checks(corrector.table, first, K, C, MS, device, sync)
+    baseline = k1_baseline(k1_base) if k1_base else None
+    checks = kernel_checks(corrector.table, first, K, C, MS, device, sync,
+                           baseline=baseline)
 
     kept, oracle_s, retry = instrument(corrector)
     n, correct_s, launches = drive(args, solid, corrector, sync)
     st = corrector.last_stats
-    # upper estimate of the kernels' share: every launch costed at the
+    # upper estimate of the kernels' share: every call costed at the
     # first chunk's time (retry chunks are smaller; walk_sites at the
     # graph default-profile time)
-    kernel_s = sum(launches[m] * checks[m]["ms"] for m in launches) / 1e3
+    kernel_s = sum(launches[m] / kernels.PER_CALL.get(m, 1) * checks[m]["ms"]
+                   for m in launches) / 1e3
     reasons = cap_reasons(kept)
     log("cap reasons: " + json.dumps(reasons))
     device_s = sum(r["device_s"] for r in reasons.values())
@@ -487,7 +597,7 @@ def main_path(workdir, device, sync, card, build):
           f"(> {MAX_FALLBACK:.0%})")
     check(bool(retry), "the main path retried no chunk on the wide sibling")
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
-                                sync, wide=True))
+                                sync, wide=True, baseline=baseline))
     oracle_check("default chain", out, seqs, args.corrections, solid,
                  corrector.last_host)
 
@@ -528,6 +638,11 @@ def main_path(workdir, device, sync, card, build):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k1-baseline", metavar="CSRC_DIR",
+                    help="also time K1 as built from this directory's "
+                         "dense_probe.cu (with its first design's wrapper)")
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError as e:
@@ -566,14 +681,16 @@ def main():
             log(f"build: {len(kernels.KERNELS)} kernels in "
                 f"{built['s']:.1f} s (nvcc in parallel)")
             for name, rep in kernels.BUILD_LOG.items():
-                regs = [ln.strip() for ln in rep.splitlines()
-                        if "registers" in ln]
+                regs = [ln.split(":", 1)[-1].strip()
+                        for ln in rep.splitlines()
+                        if "registers" in ln or "spill" in ln]
                 log(f"  ptxas {name}: {' | '.join(regs)}")
 
         device = torch.device("cuda")
         with tempfile.TemporaryDirectory() as work:
             entries = main_path(work, device, sync=torch.cuda.synchronize,
-                                card=card, build=join_build)
+                                card=card, build=join_build,
+                                k1_base=opts.k1_baseline)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -7,6 +7,8 @@ on a machine with the GPU:
 
 Nothing here imports JAX or br_tpu: that machine has neither."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from br_tpu_torch.correct import walk
 from br_tpu_torch.correct.engine3 import Torch3Corrector, make_pass3_fn
 from br_tpu_torch.correct.layout import WIDE_WALK_MAX, site_capacity
 from br_tpu_torch.correct.reference import build_methods, correct_read
+from br_tpu_torch.correct.sites import Sites
 from br_tpu_torch.set.solid import SolidSet
 
 pytestmark = pytest.mark.cuda
@@ -77,7 +80,7 @@ def test_kernels_match_plain(dev, cases, name):
     torch.cuda.synchronize()
     for name_k in ONE_KERNELS:
         assert kernels.LAUNCHES[name_k] == before[name_k] + (
-            4 if name_k == "chain_splice" else 2)
+            8 if name_k == "chain_splice" else 2)   # K3: two kernels a call
 
 
 @pytest.mark.parametrize("name", tc.FAMILIES)
@@ -169,6 +172,81 @@ def test_wide_retry_on_card(dev, strategy):
     assert got == [correct_read(r, methods, True) for r in reads]
     st = tcor.last_stats
     assert st["wide_retried"] > 0 and st["capped"] == 0, st
+
+
+# Adversarial inputs (tests/torch_cases.py): K1 on seeded random 2^20
+# chunks, K3 on synthetic site tables; exact against the plain versions.
+
+@pytest.mark.parametrize("k", [11, 13, 15])
+@pytest.mark.parametrize("ns", ["above", "cut"])
+def test_dense_probe_stress(dev, k, ns):
+    """A 2^20 chunk of random codes and a ~30 % solid bitfield (sites in
+    every tile), unaligned slots, reads across tiles; NS above the site
+    count, or cut in the middle of a tile (the cap_read path)."""
+    codes, words, rstart, rlen = tc.dense_stress_case(k, seed=k)
+    args = [torch.from_numpy(a).to(dev) for a in (words, codes, rstart,
+                                                  rlen)]
+    NS = 1 << 18
+    if ns == "cut":
+        full = probe.dense_probe_plain(*args, k, NS)
+        NS = int(full.T[: 100 * probe.TILE + probe.TILE // 2].sum())
+    before = kernels.LAUNCHES["dense_probe"]
+    d = probe.dense_probe(*args, k, NS)
+    dp = probe.dense_probe_plain(*args, k, NS)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dense_probe"] == before + 1
+    _same(d, dp)
+    n = int(dp.n_sites[0])
+    assert (n > NS and bool(dp.cap_read.any())) == (ns == "cut")
+    assert n > 1 << 17
+
+
+def test_dense_probe_without_sites(dev):
+    codes, words, rstart, rlen = tc.dense_stress_case(13, seed=5,
+                                                      solid=False)
+    args = [torch.from_numpy(a).to(dev) for a in (words, codes, rstart,
+                                                  rlen)]
+    d = probe.dense_probe(*args, 13, 1 << 15)
+    _same(d, probe.dense_probe_plain(*args, 13, 1 << 15))
+    assert int(d.n_sites[0]) == 0
+
+
+SPLICE_CASES = {
+    "windows": dict(seed=1, ew=1),
+    "full": dict(seed=2, ew=1, R=16, full=True),
+    "walk": dict(seed=3, ew=16),
+    "wide": dict(seed=4, ew=128, chunk=1 << 18, R=32),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _splice_case(name):
+    return tc.splice_stress_case(**SPLICE_CASES[name])
+
+
+@pytest.mark.parametrize("case", list(SPLICE_CASES))
+def test_chain_splice_stress(dev, case):
+    """K3 on synthetic site tables: reads of up to NS sites (many
+    windows), chains that break mid-window or jump over windows,
+    successors past the read, empty reads and unused slots, a read that
+    fills its slot exactly, capped sites off the chain, emits of up to
+    2041 bases in 128 words; in ``full``, the read past NS capped as K1
+    caps it."""
+    (codes, rstart, rlen, s_pos, n_sites, sites,
+     cap_dense) = _splice_case(case)
+    args = [torch.from_numpy(a).to(dev) for a in (codes, rstart, rlen,
+                                                  s_pos, n_sites)]
+    st = Sites(*(torch.from_numpy(a).to(dev) for a in sites))
+    cd = torch.from_numpy(cap_dense).to(dev)
+    before = kernels.LAUNCHES["chain_splice"]
+    x = splice.chain_splice(*args, st, cd)
+    xp = splice.chain_splice_plain(*args, st, cd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chain_splice"] == before + 2   # two kernels
+    _same(x, xp)
+    assert int(xp.aux[4]) > splice.WINDOW and bool(xp.cap.any())
+    if case == "full":
+        assert bool(xp.cap[1]) and int(xp.aux[7]) > int(xp.aux[0])
 
 
 def test_unpack_pack_on_card(dev):

@@ -38,6 +38,8 @@ import os
 
 import numpy as np
 
+from br_tpu_torch.correct.layout import BIG, SLOTS
+
 K, C, MS = 13, 5, 7
 CHUNK, R = 1 << 14, 32
 STRATEGIES = ("one", "two", "graph", "gap-size", "greedy")
@@ -350,6 +352,166 @@ def record(strategy):
                                 walk_max=WIDE_WALK_MAX)
         outs["long_walk_wide"] = wide["long_walk"]
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Adversarial inputs of K1 and K3 (numpy, from a seed): the CUDA tests hold
+# the kernels against their plain versions on them.
+# ---------------------------------------------------------------------------
+
+def stress_slots(rng, chunk, R, first=37, size=(50, 4000)):
+    """A slot table of random sizes from the unaligned start ``first``:
+    every 7th read is empty, every 5th fills its slot, the others leave
+    up to 64 positions of slack; slots past the chunk are unused."""
+    rstart = np.full(R, chunk, np.int32)
+    rlen = np.zeros(R, np.int32)
+    off = first
+    for b in range(R):
+        cap = int(rng.integers(*size))
+        if off + cap > chunk:
+            break
+        rstart[b] = off
+        rlen[b] = (0 if b % 7 == 3 else cap if b % 5 == 1
+                   else max(0, cap - int(rng.integers(0, 65))))
+        off += cap
+    return rstart, rlen
+
+
+def dense_stress_case(k, seed, chunk=1 << 20, R=512, solid=True):
+    """K1's inputs: seeded random codes (bit 2 set at random, as a carried
+    V), a seeded random bitfield with about 30 % of its bits set (none if
+    not ``solid``: no site in the chunk), and a slot table of random sizes
+    from an unaligned start, so that reads straddle K1's tiles.
+    Returns (codes, table words int32, rstart, rlen)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 8, chunk, dtype=np.uint8)
+    nwords = max(1, (1 << (2 * k - 1)) // 32)
+
+    def word():
+        return rng.integers(0, 1 << 32, nwords, dtype=np.uint32)
+
+    if solid:   # (a & b) | (c & d & e & f): 1/4 + 3/4 * 1/16 of the bits
+        words = (word() & word()) | (word() & word() & word() & word())
+    else:
+        words = np.zeros(nwords, np.uint32)
+    rstart, rlen = stress_slots(rng, chunk, R)
+    return codes, words.view(np.int32), rstart, rlen
+
+
+def splice_len(rs, rend, lo, hi, succ, rec_p, rec_c, rec_s, chunk):
+    """A read's spliced length (body + tail) by the chain rule of K3."""
+    x, pe, body = lo, rs, 0
+    while x < hi:
+        for s in range(SLOTS):
+            p = int(rec_p[x * SLOTS + s])
+            if p < BIG:
+                body += min(max(p - pe, 0), chunk) + int(rec_c[x * SLOTS + s])
+                pe = p + int(rec_s[x * SLOTS + s])
+        nx = int(succ[x])
+        if nx <= x:
+            break
+        x = nx
+    return body + rend - pe
+
+
+def splice_stress_case(seed, ew, chunk=1 << 20, R=64, full=False):
+    """K3's inputs on a synthetic site table: ``full`` gives one read all
+    NS listed sites (and n_sites past NS), else reads of 0 to 3000 sites
+    (many K3 windows), reads without sites and empty reads.  Successors go
+    to the next site, skip a few (sites off the chain) or jump 600-1600
+    sites (over whole windows); in even reads the chain may also end
+    mid-window (a successor at or below the site, NS, or past the read's
+    last site).  Some reads have capped sites, on the chain or off it.  A
+    site uses a random subset of its 8 record slots (unused entries hold
+    garbage); a record's emit is ``ew`` words, up to 16*ew - 7 bases (2041
+    at ew=128); every 4th read's records may overlap (negative verbatim
+    lengths).  Read 3 fills its slot exactly, read 5 overflows it, the
+    last two slots are unused; ``cap_dense`` is random but for read 3,
+    and in ``full`` read 1 is capped as K1 caps a read with sites past
+    NS.  Returns (codes, rstart, rlen, s_pos,
+    n_sites, (succ, s_cap, rec_p, rec_c, rec_s, rec_e), cap_dense)."""
+    rng = np.random.default_rng(seed)
+    NS = max(2048, chunk // 32)
+    codes = rng.integers(0, 8, chunk, dtype=np.uint8)
+    succ = np.full(NS, NS, np.int32)
+    s_cap = np.zeros(NS, np.int32)
+    rec_p = np.full(NS * SLOTS, BIG, np.int32)
+    rec_c = rng.integers(-3, 3000, NS * SLOTS).astype(np.int32)
+    rec_s = rng.integers(-3, 3000, NS * SLOTS).astype(np.int32)
+    rec_e = rng.integers(-(1 << 31), 1 << 31, (NS * SLOTS, ew),
+                         dtype=np.int64).astype(np.int32)
+    rstart = np.full(R, chunk, np.int32)
+    rlen = np.zeros(R, np.int32)
+    s_pos = np.full(NS, BIG, np.int32)
+    cmax = 16 * ew - 7 if ew > 1 else 16
+    if full:
+        plan = [0, NS, 5, 0]
+    else:
+        plan = [0, 1, 7, 3000, 512, 513, 511, 1500, 0, 2, 1200]
+        plan += [int(x) for x in rng.integers(0, 700, R)]
+    off, base = 11, 0
+    for b, ns in enumerate(plan[:R - 2]):   # the last two slots unused
+        ns = min(ns, NS - base)
+        n = 0 if b == 0 else ns * 20 + int(rng.integers(1, 200))
+        if off + n + 64 > chunk:
+            break
+        rs = off
+        # sites at least 8 apart, so that most verbatim lengths are >= 0
+        pos = rs + 8 * np.sort(rng.choice(n // 8, ns, replace=False))
+        hi = base + ns
+        ends = 0.006 if b % 2 == 0 else 0.0   # odd reads: no early end
+        # records of one site stay within the 8 positions before the
+        # next site, but for every 4th read (negative verbatim lengths)
+        tight = b % 4 != 0
+        for i, p in enumerate(pos):
+            x = base + i
+            s_pos[x] = p
+            u = rng.random()
+            nx = (x - int(rng.integers(0, 3)) if u < ends / 3 else
+                  NS if u < 2 * ends / 3 else
+                  hi + int(rng.integers(0, 3)) if u < ends else
+                  x + int(rng.integers(600, 1600)) if u < ends + 0.001 else
+                  x + int(rng.integers(2, 6)) if u < 0.12 else x + 1)
+            succ[x] = min(max(nx, 0), NS)
+            if b % 4 == 2 and rng.random() < 0.01:
+                s_cap[x] = rng.choice([1, 2, 4])
+            nrec = rng.choice(9, p=[.35, .45] + [.2 / 7] * 7)
+            q = p
+            for s in np.sort(rng.choice(SLOTS, nrec, replace=False)):
+                q += int(rng.integers(0, 2))
+                c = int(rng.integers(0, 3))
+                if q + c > min(p + 7, rs + n) and tight:
+                    break
+                e = x * SLOTS + s
+                rec_p[e] = min(q, rs + n - 1)
+                rec_s[e] = c
+                q += c
+                big_emit = ew > 1 and rng.random() < 0.01
+                rec_c[e] = (cmax - int(rng.integers(0, 3)) if big_emit
+                            else rng.integers(0, min(cmax, 30) + 1))
+        if b == 2 and ns >= 4:   # a capped site off the chain
+            succ[base : base + 2] = base + 1, base + 3
+            s_cap[base + 2] = 2
+        L = splice_len(rs, rs + n, base, hi, succ, rec_p, rec_c, rec_s,
+                       chunk) if n else 0
+        cap = max(n, L)
+        if b == 5 and n:
+            cap = max(n, L - 5)          # overflows its slot
+        elif b != 3:                     # read 3 fills its slot exactly
+            cap += int(rng.integers(0, 40))
+        if off + cap > chunk:
+            s_pos[base:hi] = BIG
+            break
+        rstart[b], rlen[b] = rs, n
+        off += cap
+        base = hi
+    n_sites = np.array([base + (17 if full else 0)], np.int32)
+    cap_dense = rng.random(R) < 0.05
+    cap_dense[3] = False
+    if full:   # read 1 has sites of rank >= NS: K1's cap_read caps it
+        cap_dense[1] = True
+    return (codes, rstart, rlen, s_pos, n_sites,
+            (succ, s_cap, rec_p, rec_c, rec_s, rec_e), cap_dense)
 
 
 def load_golden(path=GOLDEN):
