@@ -26,10 +26,6 @@ WALK_MAX = 248
 BPW = 16
 #: emit words per walk record: WALK_MAX + 1 bases.
 EW_WALK = (WALK_MAX + 1 + BPW - 1) // BPW
-#: the JAX walk's tier-1 ring and step budget (engine3.py:87-90).  The
-#: port's walk keeps one exact history up to walk_max instead of tiers.
-RING = 32
-T1_STEPS = 30
 #: the wide walk profile's bound (engine3.py:122); its retry sibling
 #: budgets a full walk emit of slot headroom per read.
 WIDE_WALK_MAX = 2040

@@ -29,9 +29,6 @@ from br_tpu_torch.correct.layout import (
     BIG, CAP_ATTEMPT, CAP_OVERFLOW, DONE_END, DONE_PURE, PENDING, SLOTS,
     check_slots)
 
-#: sites per site-kernel block (BR_SITE_THREADS in sites_common.cuh).
-BLOCK = 256
-
 
 class Sites(NamedTuple):
     succ: torch.Tensor   # (NS,) int32 successor site id, NS for none
@@ -177,13 +174,17 @@ def one_attempt_plain(probe, code_at, k: int, c: int, ii, corr, lf):
 
 
 def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
-                    k: int, EW: int, attempt) -> Sites:
+                    k: int, EW: int, attempt, trace=None) -> Sites:
     """The site chains in plain PyTorch ops: all sites advance together,
     one attempt per round, until no chain is pending.
 
     ``attempt(probe, code_at, ii, rg, corr, lf)`` runs the strategy over
     the lanes whose gate passed (flat positions ii, registers rg, gated
-    alternatives corr, read ends lf) and returns an ``Attempt``."""
+    alternatives corr, read ends lf) and returns an ``Attempt``.
+    ``trace``, when given, is called after every round with the round's
+    site ids, its gate mask, the probes each lane's dirty simulation made
+    and the lanes that then search for their successor; it changes
+    nothing (chip_smoke.py counts the chains' dependent rounds with it)."""
     CHUNK, NS, dev = codes.shape[0], s_pos.shape[0], codes.device
     probe = dc.make_solid_probe_any(table, k)
     succ = torch.full((NS,), NS, dtype=torch.int32, device=dev)
@@ -243,6 +244,7 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
         st = torch.where(ok, 0, tt)
         prev = ok.clone()
         state = torch.full_like(si, -1)
+        probes = torch.zeros_like(si)
         for _ in range(k):
             run = state < 0
             pure = run & (st >= k)
@@ -253,6 +255,7 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
             nreg = dc.add_nuc(sreg, code_at(si), k)
             v = probe(nreg)
             sreg = torch.where(go, nreg, sreg)
+            probes = probes + go.long()
             nested = go & ~v & prev
             state = torch.where(nested, PENDING, state)
             adv = go & ~nested
@@ -267,6 +270,9 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
         has = ((state == DONE_PURE) & ~bad & (si < CHUNK) & (q < n_eff)
                & (sites[qc] < lf))
         succ[act[has]] = q[has].int()
+        if trace is not None:
+            trace(act, gate, probes,
+                  (state == DONE_PURE) & ~bad & (si < CHUNK))
 
         pend = (state == PENDING) & ~bad
         nxt = act[pend]

@@ -51,15 +51,16 @@ def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen,
     if c < 0:
         raise ValueError(f"confirm must be >= 0, got {c}")
     if kernels.on_cuda(codes):
+        # the kernel scans V 16 bytes a lane
+        if codes.shape[0] % 16 or V.data_ptr() % 16:
+            raise ValueError("walk_sites needs a chunk of a multiple of 16 "
+                             "positions and a 16-byte aligned V")
         NS = s_pos.shape[0]
         out = empty_sites(NS, wp.ew, codes.device)
-        # every site's walked k-mers, [step][site]
-        hist = torch.empty((walk_max + 1) * NS, dtype=torch.int32,
-                           device=codes.device)
         kernels.launch(
             "walk_sites", codes, table, kmers, V, s_pos, n_sites, rstart,
             rlen, codes.shape[0], rstart.shape[0], k, c, NS, mode, walk_max,
-            wp.ew, hist, *out)
+            wp.ew, *out)
         return out
     return walk_sites_plain(table, codes, kmers, V, s_pos, n_sites, rstart,
                             rlen, k, c, strategy, walk_max)

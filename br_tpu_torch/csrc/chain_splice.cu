@@ -83,26 +83,6 @@
 #define K3_NOEND (-2147483647 - 1)     // no record end
 #define FULL_MASK 0xffffffffu
 
-// first i in [0, n) with a[i] >= x, or n: a 32-way search by one warp
-__device__ __forceinline__ int k3_warp_lower_bound(
-    const int32_t* __restrict__ a, int n, int x, int lane) {
-  int lo = 0, hi = n;  // the answer is in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) >> 5;
-    const int i = lo + lane * step;
-    const bool less = i < hi && a[i] < x;
-    const int c = __popc(__ballot_sync(FULL_MASK, less));
-    if (c == 0) {
-      hi = lo;
-    } else {
-      const int last = lo + (c - 1) * step;
-      hi = min(hi, lo + c * step);
-      lo = last + 1;
-    }
-  }
-  return lo;
-}
-
 __device__ __forceinline__ void k3_load8(const int32_t* __restrict__ a,
                                          size_t i, bool vec, int v[8]) {
   if (vec) {
@@ -171,10 +151,10 @@ __global__ void __launch_bounds__(K3_THREADS) splice_walk_kernel(
 
   // 1. the read's listed sites [lo, hi)
   if (warp == 0) {
-    const int v = k3_warp_lower_bound(s_pos, n_eff, rs, lane);
+    const int v = br_warp_lower_bound(s_pos, n_eff, rs, lane);
     if (lane == 0) sh_lo = v;
   } else if (warp == 1 && n > 0) {
-    const int v = k3_warp_lower_bound(s_pos, n_eff, rend, lane);
+    const int v = br_warp_lower_bound(s_pos, n_eff, rend, lane);
     if (lane == 0) sh_hi = v;
   }
   if (tid < 4) sh_cnt[tid] = 0;

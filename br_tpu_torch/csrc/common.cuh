@@ -70,6 +70,29 @@ __device__ __forceinline__ int br_lower_bound(const int32_t* a, int n,
   return lo;
 }
 
+#define BR_FULL 0xffffffffu
+
+// first i in [0, n) with a[i] >= x, or n: a 32-way search by one warp
+// (every lane calls it with the same arguments and gets the answer)
+__device__ __forceinline__ int br_warp_lower_bound(
+    const int32_t* __restrict__ a, int n, int x, int lane) {
+  int lo = 0, hi = n;  // the answer is in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int i = lo + lane * step;
+    const bool less = i < hi && a[i] < x;
+    const int c = __popc(__ballot_sync(BR_FULL, less));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int last = lo + (c - 1) * step;
+      hi = min(hi, lo + c * step);
+      lo = last + 1;
+    }
+  }
+  return lo;
+}
+
 // the entry points' error text (ctypes side)
 extern "C" const char* br_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -23,16 +23,31 @@
 // 524-552 gives consumed = cnt + offset, and a negative one caps the site
 // (CAP_ATTEMPT, as :700-702).
 //
-// One thread per site runs the site chain of sites_common.cuh; the
-// thread's DP keeps two score rows in registers and the traceback codes
-// of every cell (3 x 3 bits) in 16-bit local memory.  The JAX queue's
-// generation capacities have no counterpart.  JAX refuses ms + 1 > 16
-// (one emit word, :726-727); so does the wrapper.
+// One warp per site runs the warp site chain of sites_common.cuh (NS
+// warps, BR_WARP_SITES a block).  The JAX queue's generation capacities
+// have no counterpart.  JAX refuses ms + 1 > 16 (one emit word,
+// :726-727); so does the wrapper.
 //
-// Bound on the H100: the DP's operations, ~400 cells x ~12 integer ops
-// per attempt, and the walk's 4*ms dependent probes.  The design runs the
-// traceback only for the steps up to the first event (a failure or an
-// accept), and keeps the DP rows in registers.
+// Bound on the H100: a chain of dependent steps (the walk's ms probe
+// rounds, the DP's cells, a traceback of up to ~58 cells) per attempt,
+// not bytes.  The warp shortens each:
+//  - the walk stays serial, its 4 probes a step on lanes 0-3; lane p
+//    holds wks[p] and path[p], and the revisit test is one vote; the walk
+//    stops at its first failure, after which no step can decide;
+//  - the DP runs as an anti-diagonal wavefront, lane j owning column j
+//    (Lc + 1 <= 31 lanes): S, I, D and the S code of the left column come
+//    by __shfl_up_sync, the diagonal S is the left lane's previous one;
+//    Lr + Lc + 1 steps in place of Lr * Lc serial cells, and only the rows
+//    and columns the deciding steps can reach (it < min(fail_step,
+//    rem + 1));
+//  - the traceback codes go to the warp's slice of shared memory
+//    (<= 1.8 KB), not local memory;
+//  - lanes it = 0..ms-1 trace back from cell (k-1+it, k-1+it+2) at once,
+//    each in registers only: a delay line of the last k-1 ops holds back
+//    the before-part, so the first Match pair past it and the offset come
+//    out in one backward pass; each lane then sends its nb validation
+//    probes, and a ballot takes the smallest deciding it: the serial
+//    loop's answer in one traceback time.
 #include "sites_common.cuh"
 
 #define OP_MATCH 0
@@ -54,19 +69,53 @@
 #define TB_I(x) (((x) >> 3) & 7)
 #define TB_D(x) (((x) >> 6) & 7)
 
-// The alignment of step `it`: whether two consecutive Matches follow the
-// before bases, and the offset of reference.py:534-551.
+// traceback codes of one warp's DP: (MAX_LR+1) x (MAX_LC+1), padded
+#define TB_WORDS ((MAX_LR + 1) * (MAX_LC + 1) + 5)
+
+// The offset of step it's alignment, by the lane that traces it back from
+// (r, j) through tb (NC columns): whether two consecutive Matches follow
+// the first k-1 (before) ops, and the offset of reference.py:534-551.
+// The traceback yields ops from the last to the first.  An op is "past
+// the before part" (forward index >= k-1) once k-1 more ops follow it,
+// so the last k-1 ops seen wait in a 2-bit delay line; each op leaving it
+// is checked against the op that left before it (the next one forward),
+// and the last such Match pair found is the first one forward.  offset
+// sums the indels past the before part up to that pair; corr, the
+// indels that end the alignment, is the leading run of the backward ops.
 __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
-                                              int k, int it, int* off) {
-  int ops[MAX_LR + MAX_LC];
-  int r = k - 1 + it, j = k - 1 + it + 2, nops = 0;
+                                              int k, int r, int j,
+                                              int* off) {
+  const int dl = k - 1;
+  const uint32_t dmask = (1u << (2 * dl)) - 1u;
+  uint32_t line = 0;
+  int nline = 0, prev = -1, sum = 0, sum_at = 0, corr = 0;
+  bool found = false, lead = true;
   int layer = TB_S(tb[r * NC + j]);
   while (layer != TB_START) {
-    ops[nops++] = layer;
-    if (layer == OP_INS) {
+    const int op = layer;
+    if (lead) {
+      if (op == OP_INS) ++corr;
+      else if (op == OP_DEL) --corr;
+      else lead = false;
+    }
+    int past = op;  // the op whose forward index is now known >= k-1
+    if (dl > 0) {
+      past = nline == dl ? (int)((line >> (2 * (dl - 1))) & 3u) : -1;
+      if (nline < dl) ++nline;
+      line = ((line << 2) | (uint32_t)op) & dmask;
+    }
+    if (past >= 0) {
+      if (past == OP_MATCH && prev == OP_MATCH) {
+        found = true;
+        sum_at = sum;
+      }
+      sum += past == OP_INS ? 1 : (past == OP_DEL ? -1 : 0);
+      prev = past;
+    }
+    if (op == OP_INS) {
       layer = TB_I(tb[r * NC + j]);
       --r;
-    } else if (layer == OP_DEL) {
+    } else if (op == OP_DEL) {
       layer = TB_D(tb[r * NC + j]);
       --j;
     } else {
@@ -75,27 +124,13 @@ __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
       layer = TB_S(tb[r * NC + j]);
     }
   }
-  // ops[] is reversed: forward op w is ops[nops-1-w]
-  int offset = 0;
-  bool exists = false;
-  for (int w = k - 1; w + 1 <= nops - 1; ++w) {
-    const int op0 = ops[nops - 1 - w], op1 = ops[nops - 2 - w];
-    if (op0 == OP_MATCH && op1 == OP_MATCH) { exists = true; break; }
-    offset += op0 == OP_INS ? 1 : (op0 == OP_DEL ? -1 : 0);
-  }
-  if (!exists) return false;
-  int corr = 0;
-  for (int t = 0; t < nops; ++t) {
-    if (ops[t] == OP_INS) ++corr;
-    else if (ops[t] == OP_DEL) --corr;
-    else break;
-  }
-  *off = offset - corr;
-  return true;
+  *off = (sum - sum_at) - corr;
+  return found;
 }
 
 __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
-                                                    int nb, int i,
+                                                    int nb, int lane,
+                                                    uint16_t* tb, int i,
                                                     uint32_t reg,
                                                     uint32_t corr, int lenf,
                                                     int32_t* erow) {
@@ -104,108 +139,129 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
   const int rem = lenf - i;
   BrAttempt res = {false, false, 0u, 0, 0};
 
-  // the ms-step walk
-  uint32_t wks[MAX_MS + 1];
-  uint8_t path[MAX_MS + 1];
-  wks[0] = corr;
-  path[0] = corr & 3u;
+  // the ms-step walk: lane p holds wks[p] and path[p]
+  uint32_t my_wk = corr, my_path = corr & 3u, wk = corr;
   int fail_step = ms;
   for (int s = 0; s < ms; ++s) {
     uint32_t sa;
-    const int ns = br_alt_next(a.table, wks[s], k, kmask, &sa);
+    const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
     const bool bf = ns != 1;
-    const uint32_t nxt = bf ? wks[s] : br_add(wks[s], sa, kmask);
-    bool revisit = false;
-    for (int p = 0; p <= s; ++p) revisit |= nxt == wks[p];
-    if (fail_step == ms && (bf || revisit)) fail_step = s;
-    wks[s + 1] = nxt;
-    path[s + 1] = (uint8_t)sa;
-  }
-
-  // the DP of r_full (rows) against c_full (columns)
-  const int Lr = k - 1 + ms - 1, Lc = k - 1 + ms + 1, NC = Lc + 1;
-  uint8_t x[MAX_LR], y[MAX_LC];
-  const uint32_t pre = reg >> 2;
-  for (int t = 0; t < k - 1; ++t) {
-    x[t] = y[t] = (pre >> (2 * (k - 2 - t))) & 3u;
-  }
-  for (int t = 0; t < ms - 1; ++t)
-    x[k - 1 + t] = code_at(a.codes, i + t, a.CHUNK);
-  for (int t = 0; t <= ms; ++t) y[k - 1 + t] = path[t];
-
-  uint16_t tb[(MAX_LR + 1) * (MAX_LC + 1)];
-  int S[MAX_LC + 1], I[MAX_LC + 1];
-  S[0] = 0;
-  I[0] = NEG_SCORE;
-  tb[0] = TB(TB_START, TB_START, TB_START);
-  for (int j = 1; j <= Lc; ++j) {
-    S[j] = GAP_OPEN + GAP_EXT * j;
-    I[j] = NEG_SCORE;
-    tb[j] = TB(OP_DEL, TB_START, j > 1 ? OP_DEL : TB_START);
-  }
-  for (int r = 1; r <= Lr; ++r) {
-    const uint8_t xi = x[r - 1];
-    const uint16_t* up = tb + (r - 1) * NC;
-    uint16_t* row = tb + r * NC;
-    int diag = S[0];  // S[r-1][j-1]
-    S[0] = GAP_OPEN + GAP_EXT * r;
-    I[0] = S[0];
-    int D = NEG_SCORE;
-    int sb_left = OP_INS;
-    row[0] = TB(OP_INS, r > 1 ? OP_INS : TB_START, TB_START);
-    for (int j = 1; j <= Lc; ++j) {
-      // Ins: consume x against a gap (from row r-1)
-      int ext = I[j] + GAP_EXT, opn = S[j] + GAP_OPEN + GAP_EXT;
-      const int In = ext > opn ? ext : opn;
-      const int ib = ext > opn ? OP_INS : TB_S(up[j]);
-      // Del: consume y against a gap (from column j-1)
-      ext = D + GAP_EXT;
-      opn = S[j - 1] + GAP_OPEN + GAP_EXT;
-      const int Dn = ext > opn ? ext : opn;
-      const int db = ext > opn ? OP_DEL : sb_left;
-      const bool m = xi == y[j - 1];
-      int best = diag + (m ? 1 : -1);
-      int sb = m ? OP_MATCH : OP_SUBST;
-      if (In > best) { best = In; sb = OP_INS; }
-      if (Dn > best) { best = Dn; sb = OP_DEL; }
-      diag = S[j];
-      S[j] = best;
-      I[j] = In;
-      D = Dn;
-      sb_left = sb;
-      row[j] = TB(sb, ib, db);
+    const uint32_t nxt = bf ? wk : br_add(wk, sa, kmask);
+    const bool revisit =
+        __any_sync(BR_FULL, lane <= s && my_wk == nxt);
+    if (lane == s + 1) {
+      my_wk = nxt;
+      my_path = sa;
     }
-  }
-
-  // the first event decides
-  int it_sel = -1, off = 0;
-  for (int it = 0; it < ms; ++it) {
-    if (fail_step == it || rem < it) break;
-    int o;
-    if (!greedy_offset(tb, NC, k, it, &o)) continue;
-    bool okc = rem - it >= nb;
-    uint32_t km = wks[it + 1];
-    for (int t = 0; t < nb && okc; ++t) {
-      km = br_add(km, code_at(a.codes, i + it + t, a.CHUNK), kmask);
-      okc = br_probe(a.table, km, k);
-    }
-    if (okc) {
-      it_sel = it;
-      off = o;
+    wk = nxt;
+    if (bf || revisit) {  // no step from here on decides
+      fail_step = s;
       break;
     }
   }
-  if (it_sel < 0) return res;
+  // the deciding steps: it <= it_max
+  const int it_max = min(min(ms - 1, fail_step - 1), rem);
+  if (it_max < 0) return res;
+
+  // the DP of r_full (rows) against c_full (columns), rows 0..Lr and
+  // columns 0..Lc as far as the deciding steps reach
+  const int Lr = k - 1 + it_max, Lc = k + 1 + it_max, NC = Lc + 1;
+  const uint32_t pre = reg >> 2;
+  // lane t: x[t]; lane j: y[j-1], the base of its column
+  const uint32_t xl = lane < k - 1
+                          ? (pre >> (2 * (k - 2 - lane))) & 3u
+                          : code_at(a.codes, i + lane - (k - 1), a.CHUNK);
+  const uint32_t pth = __shfl_sync(BR_FULL, my_path, (lane - k) & 31);
+  const uint32_t yj = lane == 0 ? 0u
+                      : lane - 1 < k - 1
+                          ? (pre >> (2 * (k - 2 - (lane - 1)))) & 3u
+                          : pth;
+  int S = 0, Sold = 0, I = NEG_SCORE, D = NEG_SCORE, sb = TB_START;
+  // the step count comes from lane 0 and the loop stays rolled: written
+  // as `d <= Lr + Lc`, nvcc (12.9, sm_90a) cut this loop after 11 steps
+  const int steps = __shfl_sync(BR_FULL, Lr + Lc + 1, 0);
+#pragma unroll 1
+  for (int d = 0; d < steps; ++d) {
+    const int r = d - lane;
+    const int lS = __shfl_up_sync(BR_FULL, S, 1);
+    const int lSold = __shfl_up_sync(BR_FULL, Sold, 1);
+    const int lD = __shfl_up_sync(BR_FULL, D, 1);
+    const int lsb = __shfl_up_sync(BR_FULL, sb, 1);
+    const uint32_t xr = __shfl_sync(BR_FULL, xl, (r - 1) & 31);
+    if (lane <= Lc && r >= 0 && r <= Lr) {
+      int nS, nI, nD, nsb;
+      uint16_t code;
+      if (r == 0) {  // the first row: Del from the start
+        nS = lane == 0 ? 0 : GAP_OPEN + GAP_EXT * lane;
+        nI = NEG_SCORE;
+        nD = NEG_SCORE;
+        nsb = lane == 0 ? TB_START : OP_DEL;
+        code = TB(nsb, TB_START, lane > 1 ? OP_DEL : TB_START);
+      } else if (lane == 0) {  // the first column: Ins from the start
+        nS = GAP_OPEN + GAP_EXT * r;
+        nI = nS;
+        nD = NEG_SCORE;
+        nsb = OP_INS;
+        code = TB(OP_INS, r > 1 ? OP_INS : TB_START, TB_START);
+      } else {
+        // Ins: consume x against a gap (from row r-1, this lane's cell)
+        int ext = I + GAP_EXT, opn = S + GAP_OPEN + GAP_EXT;
+        nI = ext > opn ? ext : opn;
+        const int ib = ext > opn ? OP_INS : sb;
+        // Del: consume y against a gap (from column j-1, the left lane)
+        ext = lD + GAP_EXT;
+        opn = lS + GAP_OPEN + GAP_EXT;
+        nD = ext > opn ? ext : opn;
+        const int db = ext > opn ? OP_DEL : lsb;
+        const bool m = xr == yj;
+        int best = lSold + (m ? 1 : -1);
+        nsb = m ? OP_MATCH : OP_SUBST;
+        if (nI > best) { best = nI; nsb = OP_INS; }
+        if (nD > best) { best = nD; nsb = OP_DEL; }
+        nS = best;
+        code = TB(nsb, ib, db);
+      }
+      tb[r * NC + lane] = code;
+      Sold = S;
+      S = nS;
+      I = nI;
+      D = nD;
+      sb = nsb;
+    }
+  }
+  __syncwarp();
+
+  // every deciding step at once: lane it traces back and validates
+  const uint32_t wnext = __shfl_sync(BR_FULL, my_wk, (lane + 1) & 31);
+  bool good = false;
+  int off = 0;
+  if (lane <= it_max &&
+      greedy_offset(tb, NC, k, k - 1 + lane, k + 1 + lane, &off)) {
+    bool okc = rem - lane >= nb;
+    uint32_t km = wnext;
+#pragma unroll 4
+    for (int t = 0; t < nb; ++t) {
+      km = br_add(km, code_at(a.codes, i + lane + t, a.CHUNK), kmask);
+      okc &= br_probe(a.table, km, k);
+    }
+    good = okc;
+  }
+  __syncwarp();  // the next attempt overwrites tb
+  const uint32_t gm = __ballot_sync(BR_FULL, good);
+  if (!gm) return res;
+  const int it_sel = __ffs(gm) - 1;
+  const int o = __shfl_sync(BR_FULL, off, it_sel);
+  const uint32_t nk = __shfl_sync(BR_FULL, my_wk, it_sel + 1);
   const int cnt = it_sel + 2;
-  const int raw = cnt + off;
+  const int raw = cnt + o;
+  const uint32_t emit =
+      __reduce_or_sync(BR_FULL, lane < cnt ? my_path << (2 * lane) : 0u);
   res.ok = true;
   res.cap = raw < 0;
   res.consumed = raw < 0 ? 0 : raw;
   res.cnt = cnt;
-  res.new_kmer = wks[it_sel + 1];
-  uint32_t emit = 0;
-  for (int t = 0; t < cnt; ++t) emit |= (uint32_t)path[t] << (2 * t);
-  if (erow) erow[0] = (int32_t)emit;
+  res.new_kmer = nk;
+  if (erow && lane == 0) erow[0] = (int32_t)emit;
   return res;
 }
 
@@ -213,14 +269,17 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
     greedy_sites_kernel(BrSites a, int ms, int nb) {
   __shared__ int32_t sh_start[BR_MAX_R];
   __shared__ int32_t sh_len[BR_MAX_R];
+  __shared__ uint16_t sh_tb[BR_WARP_SITES][TB_WORDS];
   br_stage_slots(a, sh_start, sh_len);
-  const int sid = blockIdx.x * BR_SITE_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
+  uint16_t* tb = sh_tb[warp];
   auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
                      int32_t* erow) {
-    return greedy_attempt(a, ms, nb, i, reg, corr, lenf, erow);
+    return greedy_attempt(a, ms, nb, lane, tb, i, reg, corr, lenf, erow);
   };
-  br_site_chain(a, sid, sh_start, sh_len, attempt);
+  br_site_chain_warp(a, sid, lane, sh_start, sh_len, attempt);
 }
 
 extern "C" int br_greedy_sites(
@@ -232,7 +291,7 @@ extern "C" int br_greedy_sites(
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
-  greedy_sites_kernel<<<br_site_blocks(NS), BR_SITE_THREADS, 0,
+  greedy_sites_kernel<<<br_warp_site_blocks(NS), BR_SITE_THREADS, 0,
                         (cudaStream_t)stream>>>(a, ms, nb);
   return (int)cudaGetLastError();
 }

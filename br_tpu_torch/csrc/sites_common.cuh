@@ -1,20 +1,31 @@
 // Shared device code of the site kernels: K2 one_sites, K5 two_sites,
 // K6 walk_sites and K7 greedy_sites.
 //
-// Every site kernel has K2's shape: one thread per listed site id
-// sid < NS, which runs its site's whole chain of nested attempts to the
-// end (the site-block queue of br_tpu/correct/engine3.py:1592-1708, with
-// the JAX queue's generation capacities NQA / MAXB -> CAP_ROUNDS having
-// no counterpart).  A chain step is: the exactly-one-alternative gate
-// (_alt_info32_arr, :966); the strategy's attempt, a functor the kernel
-// passes in; a repair record when it applies (at most SLOTS per site,
-// beyond that CAP_OVERFLOW); an attempt that hits an engineered bound
-// caps the site with CAP_ATTEMPT; then the dirty simulation (dirty_sim,
-// :1526-1564) for k steps past the last repair, which either finds a
-// nested site (attempt again there), reaches the read end, or hands over
-// to the successor: the first listed site at or after the stop position
-// inside the read (a lower bound over s_pos, in place of the JAX nt
-// table).
+// Two shapes of the site chain (the site-block queue of
+// br_tpu/correct/engine3.py:1592-1708, with the JAX queue's generation
+// capacities NQA / MAXB -> CAP_ROUNDS having no counterpart):
+//
+// br_site_chain (K2, K5): one thread per listed site id sid < NS, which
+// runs its site's whole chain of nested attempts to the end.
+//
+// br_site_chain_warp (K6, K7): one warp per site, the same chain with the
+// same state held alike in every lane, and the lanes sharing each step's
+// independent loads: the gate's 4 probes on lanes 0-3 and a ballot; the
+// dirty simulation's up to k probes at once (lane m rolls the register
+// m+1 steps by a shuffle scan of the codes, a ballot finds the first
+// event); the successor by a 32-way warp search.  A warp's chain has as
+// many dependent L2 round trips as it has attempts and dirty windows, in
+// place of one per probe, and NS warps keep every SM's schedulers fed.
+//
+// A chain step is: the exactly-one-alternative gate (_alt_info32_arr,
+// :966); the strategy's attempt, a functor the kernel passes in; a repair
+// record when it applies (at most SLOTS per site, beyond that
+// CAP_OVERFLOW); an attempt that hits an engineered bound caps the site
+// with CAP_ATTEMPT; then the dirty simulation (dirty_sim, :1526-1564) for
+// k steps past the last repair, which either finds a nested site (attempt
+// again there), reaches the read end, or hands over to the successor:
+// the first listed site at or after the stop position inside the read (a
+// lower bound over s_pos, in place of the JAX nt table).
 //
 // Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
 // count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
@@ -29,6 +40,8 @@
 #include "common.cuh"
 
 #define BR_SITE_THREADS 256
+// sites per block of a warp-per-site kernel
+#define BR_WARP_SITES (BR_SITE_THREADS / 32)
 #define BR_BPW 16
 #define BR_DONE_PURE 0
 #define BR_DONE_END 1
@@ -223,6 +236,178 @@ __device__ void br_site_chain(const BrSites& a, int sid,
   for (int s = nrec; s < BR_SLOTS; ++s) a.rec_p[rb + s] = BR_BIG;
 }
 
+// ---------------------------------------------------------------------
+// The warp-per-site chain.  Every lane of the warp calls these with the
+// same arguments and gets the same results; lane is threadIdx.x & 31.
+// ---------------------------------------------------------------------
+
+// br_alt_last with lane a < 4 probing base ^ a.
+__device__ __forceinline__ int br_alt_last_warp(
+    const uint32_t* __restrict__ table, uint32_t km, int k, int lane,
+    uint32_t* repl) {
+  const uint32_t base = (km >> 2) << 2;
+  const bool v = lane < 4 && br_probe(table, base ^ (uint32_t)lane, k);
+  const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
+  *repl = base ^ (((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3));
+  return __popc(m);
+}
+
+// br_alt_next with lane a < 4 probing add(km, a).
+__device__ __forceinline__ int br_alt_next_warp(
+    const uint32_t* __restrict__ table, uint32_t km, int k, uint32_t kmask,
+    int lane, uint32_t* code) {
+  const bool v = lane < 4 && br_probe(table, br_add(km, lane, kmask), k);
+  const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
+  *code = ((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3);
+  return __popc(m);
+}
+
+// Lane m < 15: the register km after the m+1 adds of code_at(from), ...,
+// code_at(from + m), by an inclusive shuffle scan of the lanes' codes
+// (each lane loads one).  Other lanes get a value nobody may use.
+__device__ __forceinline__ uint32_t br_roll_warp(const uint8_t* codes,
+                                                 int CHUNK, uint32_t km,
+                                                 int from, int lane,
+                                                 uint32_t kmask) {
+  uint32_t x = code_at(codes, from + lane, CHUNK);
+#pragma unroll
+  for (int d = 1; d < 16; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(BR_FULL, x, d);
+    if (lane >= d) x |= y << (2 * d);
+  }
+  const uint32_t hi = lane < 15 ? km << (2 * (lane + 1)) : 0u;
+  return (hi | x) & kmask;
+}
+
+// The One attempt of br_one_attempt with its 3*(c+1) window probes spread
+// over the lanes (lane = off*(c+1) + s, in rounds of 32), the k-mers
+// rolled per lane from corr, and the scenario masks OR-reduced.
+__device__ __forceinline__ BrAttempt br_one_attempt_warp(
+    const BrSites& a, int c, int i, uint32_t corr, int lenf,
+    int32_t* erow, int lane) {
+  const uint32_t kmask = br_kmask(a.k);
+  const int rem = lenf - i;
+  const bool corr_ok = br_probe(a.table, corr, a.k);
+  const int per = c + 1, tot = 3 * per;
+  uint32_t failm = 0, lastm = 0;
+  for (int base = 0; base < tot; base += 32) {
+    const int idx = base + lane;
+    if (idx < tot) {
+      const int off = idx / per, s = idx - off * per;
+      uint32_t km = corr;
+      for (int u = 0; u <= s; ++u)
+        km = br_add(km, code_at(a.codes, i + off + u, a.CHUNK), kmask);
+      const bool v = br_probe(a.table, km, a.k);
+      if (s < c) {
+        if (!v) failm |= 1u << off;
+      } else if (v) {
+        lastm |= 1u << off;
+      }
+    }
+  }
+  failm = __reduce_or_sync(BR_FULL, failm);
+  lastm = __reduce_or_sync(BR_FULL, lastm);
+  // scenario masks, bit off: keep, and keep with one_more
+  uint32_t keepm = 0, keep2m = 0;
+  for (int off = 0; off < 3; ++off) {
+    const bool kp = (off + c <= rem) && corr_ok && !((failm >> off) & 1u);
+    const bool more = (rem > c + off + 1) && ((lastm >> off) & 1u);
+    keepm |= (uint32_t)kp << off;
+    keep2m |= (uint32_t)(kp && more) << off;
+  }
+  const int nk = __popc(keepm), nk2 = __popc(keep2m);
+  const uint32_t sel = nk == 1 ? keepm : keep2m;
+  BrAttempt r;
+  r.ok = (nk == 1) || (nk > 1 && nk2 == 1);
+  r.consumed = (sel & 2u) ? 1 : ((sel & 4u) ? 2 : 0);
+  r.cap = false;
+  r.new_kmer = corr;
+  r.cnt = 1;
+  if (r.ok && erow && lane == 0) erow[0] = (int32_t)(corr & 3u);
+  return r;
+}
+
+// The whole chain of site sid, run by one warp (every lane calls it with
+// the same sid).  attempt(i, reg, corr, lenf, erow) is called by every
+// lane and returns the same result in every lane; erow is the record row
+// of the next record, or null past SLOTS.  Lane 0 writes the records,
+// succ and s_cap; lanes nrec..SLOTS-1 the rec_p sentinels.
+template <class Attempt>
+__device__ __forceinline__ void br_site_chain_warp(
+    const BrSites& a, int sid, int lane, const int32_t* sh_start,
+    const int32_t* sh_len, Attempt& attempt) {
+  const int n_eff = min(a.n_sites[0], a.NS);
+  const int rb = sid * BR_SLOTS;
+  const int k = a.k;
+  int nrec = 0, cap = 0, nxt = a.NS;
+
+  if (sid < n_eff) {
+    const uint32_t kmask = br_kmask(k);
+    const int pos = a.s_pos[sid];
+    const int rid = br_slot_of(sh_start, a.R, pos);
+    const int lenf = sh_start[rid] + sh_len[rid];
+    int i = pos, t = k;
+    uint32_t reg = (uint32_t)a.kmers[pos];
+    while (true) {
+      uint32_t corr;
+      BrAttempt r = {false, false, 0u, 0, 0};
+      if (br_alt_last_warp(a.table, reg, k, lane, &corr) == 1) {
+        int32_t* erow = nrec < BR_SLOTS
+                            ? a.rec_e + (size_t)(rb + nrec) * a.EW
+                            : nullptr;
+        r = attempt(i, reg, corr, lenf, erow);
+        if (r.cap) { cap = BR_CAP_ATTEMPT; break; }
+      }
+      const bool applied = r.ok;
+      if (applied) {
+        if (nrec >= BR_SLOTS) { cap = BR_CAP_OVERFLOW; break; }
+        if (lane == 0) {
+          a.rec_p[rb + nrec] = i;
+          a.rec_c[rb + nrec] = r.cnt;
+          a.rec_s[rb + nrec] = r.consumed;
+        }
+        ++nrec;
+      }
+      // dirty simulation: lane m takes step m of br_site_chain's loop
+      // (register after m+1 codes, si0+m, st0+m); the first lane with an
+      // event (st >= k, the read end, or !v && prev) decides
+      const int si0 = applied ? i + r.consumed : i + 1;
+      const uint32_t sreg0 = applied ? r.new_kmer : reg;
+      const int st0 = applied ? 0 : t;
+      const uint32_t sm = br_roll_warp(a.codes, a.CHUNK, sreg0, si0, lane,
+                                       kmask);
+      const bool live = lane < k && st0 + lane < k && si0 + lane < lenf;
+      const bool v = live && br_probe(a.table, sm, k);
+      const uint32_t vm = __ballot_sync(BR_FULL, v);
+      const bool prev = lane == 0 ? applied : ((vm >> (lane - 1)) & 1u);
+      const bool ev = lane < k && (!live || (!v && prev));
+      const uint32_t em = __ballot_sync(BR_FULL, ev);
+      const int f = em ? __ffs(em) - 1 : k;
+      const uint32_t sreg_f = __shfl_sync(BR_FULL, sm, f & 31);
+      const int si = si0 + f;
+      int state = BR_DONE_PURE;
+      if (f < k && st0 + f < k)
+        state = si >= lenf ? BR_DONE_END : BR_PENDING;
+      if (state == BR_PENDING) {  // nested site: attempt again there
+        i = si;
+        reg = sreg_f;
+        t = st0 + f + 1;
+        continue;
+      }
+      if (state == BR_DONE_PURE && si < a.CHUNK) {
+        const int q = br_warp_lower_bound(a.s_pos, n_eff, si, lane);
+        if (q < n_eff && a.s_pos[q] < lenf) nxt = q;
+      }
+      break;
+    }
+  }
+  if (lane == 0) {
+    a.succ[sid] = nxt;
+    a.s_cap[sid] = cap;
+  }
+  if (lane >= nrec && lane < BR_SLOTS) a.rec_p[rb + lane] = BR_BIG;
+}
+
 // The entry points' struct, from the C arguments every site kernel takes.
 static inline BrSites br_sites_args(
     const void* codes, const void* table, const void* kmers,
@@ -253,4 +438,9 @@ static inline BrSites br_sites_args(
 
 static inline int br_site_blocks(int NS) {
   return (NS + BR_SITE_THREADS - 1) / BR_SITE_THREADS;
+}
+
+// blocks of a warp-per-site kernel: BR_WARP_SITES sites a block
+static inline int br_warp_site_blocks(int NS) {
+  return (NS + BR_WARP_SITES - 1) / BR_WARP_SITES;
 }

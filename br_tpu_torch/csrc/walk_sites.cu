@@ -11,43 +11,48 @@
 //
 // error_len (mod.rs:130-152): at most k explicit absorbs from the site's
 // register, then the next valid position at or after i+k+1 inside the
-// read.  JAX reads that from nv, a reverse cummin over the chunk; here
-// the thread scans K1's V mask forward from i+k+1 to the read end.  That
-// costs the length of the error stretch, which the walk that follows
-// costs again, and it spares K1 a reverse scan across tiles for every
-// pass when only the walk passes need it.  The k-mer there comes from
-// K1's kmers.
+// read.  JAX reads that from nv, a reverse cummin over the chunk; here the
+// warp scans K1's V mask forward from i+k+1 to the read end, which spares
+// K1 a reverse scan across tiles for every pass when only the walk passes
+// need it.  The k-mer there comes from K1's kmers.
 //
 // The walk, from the gated alternative: each step probes the 4
 // successors; a branch (not exactly one) or a revisit DECLINEs, reaching
 // first_correct ACCEPTs (graph mode), walking max_steps completes a fill
 // (fill mode), and the step taken at walk_max CAPs, CAP outranking ACCEPT
 // (:1020-1022).  The JAX tiers keep the full history up to walk_max, so
-// revisits are exact there; the port keeps the same history per thread:
-// walk_max+1 k-mers (249 by default, 2041 in the wide profile) in a
-// scratch the wrapper allocates, laid out [step][site] so a warp's
-// threads at equal steps touch one line, and searched linearly: O(n^2)
-// per walk, paid only by the rare walk that runs long.  Past walk_max the
-// walk goes on as _brent_walk32 does: a branch or a Brent cycle DECLINEs
-// (and the site is not capped); arriving at first_correct, completing a
-// fill or passing T3_CAP stays CAP; a graph walk that capped exactly on
-// first_correct stays CAP (:1163-1167).  Emit: word 0 holds the
-// alternative's base, step n writes bits 2*(n%16) of word n/16; cnt = n;
-// consumed is err_len+1 for graph, n for a fill (:1222-1224).
-// gap-size dispatches on err_len (gap_size.rs:97-108): graph mode below
-// k, the One attempt of sites_common.cuh at k, a fill of err_len-k steps
-// above.
+// revisits are exact there; so here.  Past walk_max the walk goes on as
+// _brent_walk32 does: a branch or a Brent cycle DECLINEs (and the site is
+// not capped); arriving at first_correct, completing a fill or passing
+// T3_CAP stays CAP; a graph walk that capped exactly on first_correct
+// stays CAP (:1163-1167).  Emit: word 0 holds the alternative's base, step
+// n writes bits 2*(n%16) of word n/16; cnt = n; consumed is err_len+1 for
+// graph, n for a fill (:1222-1224).  gap-size dispatches on err_len
+// (gap_size.rs:97-108): graph mode below k, the One attempt at k, a fill
+// of err_len-k steps above.
 //
-// One thread per site, the site chain of sites_common.cuh.  The JAX
-// capacities with no counterpart: the queue's generations (NQA, MAXB ->
-// CAP_ROUNDS), tier 2's lanes per round (NW2) and tier 3's lanes (NW3 =
-// BLK): each thread walks its own site to the end.
+// One warp per site, the warp site chain of sites_common.cuh: NS warps,
+// BR_WARP_SITES a block.  The JAX capacities with no counterpart: the
+// queue's generations (NQA, MAXB -> CAP_ROUNDS), tier 2's lanes per round
+// (NW2) and tier 3's lanes (NW3 = BLK): each warp walks its own site to
+// the end.
 //
-// Bound on the H100: the walks' probes, 4 independent bitfield reads from
-// L2 per step and a chain of dependent steps per thread: latency.  The
-// design issues a step's 4 probes together, searches the history only on
-// a step that did not branch, and lets the threads of long walks run on
-// while the others retire.
+// Bound on the H100: the walks' dependent steps, one L2 round trip for a
+// step's 4 successor probes, and nothing else that the data allows to
+// overlap.  What the warp does about the rest:
+//  - err_len: lanes j = 1..k roll and probe the k explicit absorbs at once
+//    (a ballot takes the first hit, with the j >= rem rule), then the V
+//    scan reads 512 positions a step, 16 bytes a lane, and a warp minimum
+//    takes the first valid one before min(lenf, CHUNK);
+//  - gap-size's One attempt at err_len == k spreads its probes over lanes;
+//  - the exact history of the walk is the warp's slice of dynamic shared
+//    memory, walk_max+1 words (1 KB at 248, 8 KB at 2040); at each step
+//    that did not branch every lane compares its stride of it against the
+//    new k-mer and a vote decides: ceil(n/32) shared loads a lane in place
+//    of the n global loads a thread made from a [step][site] scratch in
+//    the thread-per-site design;
+//  - Brent past walk_max stays one loop of the warp, its 4 probes on 4
+//    lanes.
 #include "sites_common.cuh"
 
 #define WALK_RUN 0
@@ -57,29 +62,58 @@
 #define T3_CAP (1 << 14)
 #define MODE_GRAPH 0
 #define MODE_GAP 1
+#define NO_POS 0x7fffffff
 
 struct WalkCtx {
-  const uint8_t* V;    // K1's validity mask
-  uint32_t* hist;      // (walk_max+1, NS) walked k-mers, [step][site]
+  const uint8_t* V;  // K1's validity mask (16-byte aligned, CHUNK % 16 == 0)
   int walk_max;
 };
 
 // error_len: (j, k-mer after j), engine3.py:1459-1499
-__device__ __forceinline__ void err_len_of(const BrSites& a, const WalkCtx& w,
-                                           int i, uint32_t kmer, int lenf,
-                                           int* j_out, uint32_t* km_out) {
+__device__ __forceinline__ void err_len_warp(const BrSites& a,
+                                             const WalkCtx& w, int i,
+                                             uint32_t kmer, int lenf,
+                                             int lane, int* j_out,
+                                             uint32_t* km_out) {
   const int k = a.k;
-  const uint32_t kmask = br_kmask(k);
   const int rem = lenf - i;
-  uint32_t km = kmer;
-  for (int j = 1; j <= k; ++j) {
-    if (j >= rem) { *j_out = j; *km_out = km; return; }
-    km = br_add(km, code_at(a.codes, i + j, a.CHUNK), kmask);
-    if (br_probe(a.table, km, k)) { *j_out = j; *km_out = km; return; }
+  // lane m: absorb j = m+1 (its k-mer after the codes i+1 .. i+j)
+  const uint32_t kmj = br_roll_warp(a.codes, a.CHUNK, kmer, i + 1, lane,
+                                    br_kmask(k));
+  const int j = lane + 1;
+  const bool hit = lane < k && j < rem && br_probe(a.table, kmj, k);
+  const uint32_t em = __ballot_sync(BR_FULL, lane < k && (j >= rem || hit));
+  const uint32_t km_before = __shfl_up_sync(BR_FULL, kmj, 1);
+  if (em) {
+    const int f = __ffs(em) - 1;
+    const uint32_t km_hit = __shfl_sync(BR_FULL, kmj, f);
+    const uint32_t km_end = f == 0 ? kmer
+                                   : __shfl_sync(BR_FULL, km_before, f);
+    *j_out = f + 1;
+    *km_out = f + 1 >= rem ? km_end : km_hit;
+    return;
   }
-  const int to = min(lenf, a.CHUNK);
-  for (int q = i + k + 1; q < to; ++q) {
-    if (w.V[q]) { *j_out = q - i; *km_out = (uint32_t)a.kmers[q]; return; }
+  // the next valid position in [i+k+1, min(lenf, CHUNK)), 16 bytes a lane
+  const int from = i + k + 1, to = min(lenf, a.CHUNK);
+  for (int base = from & ~15; base < to; base += 512) {
+    const int p = base + 16 * lane;
+    int q = NO_POS;
+    if (p < to) {
+      const uint4 v = *reinterpret_cast<const uint4*>(w.V + p);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 15; b >= 0; --b) {
+        const int x = p + b;
+        if (x >= from && x < to && ((words[b >> 2] >> (8 * (b & 3))) & 0xFFu))
+          q = x;
+      }
+    }
+    q = __reduce_min_sync(BR_FULL, q);
+    if (q != NO_POS) {
+      *j_out = q - i;
+      *km_out = (uint32_t)a.kmers[q];
+      return;
+    }
   }
   *j_out = rem;
   int e = rem >= 2 ? i + rem - 1 : i;
@@ -87,35 +121,39 @@ __device__ __forceinline__ void err_len_of(const BrSites& a, const WalkCtx& w,
   *km_out = (uint32_t)a.kmers[e];
 }
 
-// The walk from corr: status, and (n, wk) after it.  Emit words go to
-// erow (when given): ceil(n/16) of them.
-__device__ int walk(const BrSites& a, const WalkCtx& w, int sid,
-                    uint32_t corr, uint32_t fc, bool use_fc, int max_steps,
-                    int32_t* erow, int* n_out, uint32_t* wk_out) {
+// The walk from corr: status, and (n, wk) after it.  hist is the warp's
+// history slice (walk_max+1 words).  Emit words go to erow (when given):
+// ceil(n/16) of them, written by lane 0.
+__device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
+                                         int lane, uint32_t* hist,
+                                         uint32_t corr, uint32_t fc,
+                                         bool use_fc, int max_steps,
+                                         int32_t* erow, int* n_out,
+                                         uint32_t* wk_out) {
   const int k = a.k;
   const uint32_t kmask = br_kmask(k);
-  uint32_t* hist = w.hist + sid;
-  const size_t hs = (size_t)a.NS;
   uint32_t wk = corr;
   int n = 1, status = WALK_RUN;
   uint32_t cur = corr & 3u;  // the emit word being filled
-  hist[0] = corr;
+  if (lane == 0) hist[0] = corr;
+  __syncwarp();
   // tiers 1 and 2: exact history up to walk_max
   while (status == WALK_RUN && (use_fc || n - 1 < max_steps) &&
          n <= w.walk_max) {
     uint32_t sa;
-    const int ns = br_alt_next(a.table, wk, k, kmask, &sa);
+    const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
     const uint32_t wk2 = br_add(wk, sa, kmask);
     bool decline = ns != 1;
     if (!decline) {
-      for (int j = 0; j < n; ++j) {
-        if (hist[j * hs] == wk2) { decline = true; break; }
-      }
+      bool seen = false;
+      for (int j = lane; j < n; j += 32) seen |= hist[j] == wk2;
+      decline = __any_sync(BR_FULL, seen);
     }
-    hist[n * hs] = wk2;
+    if (lane == 0) hist[n] = wk2;
+    __syncwarp();
     cur |= sa << (2 * (n % BR_BPW));
     if (n % BR_BPW == BR_BPW - 1) {
-      if (erow) erow[n / BR_BPW] = (int32_t)cur;
+      if (erow && lane == 0) erow[n / BR_BPW] = (int32_t)cur;
       cur = 0;
     }
     status = decline ? WALK_DECLINE
@@ -125,7 +163,8 @@ __device__ int walk(const BrSites& a, const WalkCtx& w, int sid,
     wk = wk2;
     ++n;
   }
-  if (status != WALK_CAP && n % BR_BPW && erow) erow[n / BR_BPW] = (int32_t)cur;
+  if (status != WALK_CAP && n % BR_BPW && erow && lane == 0)
+    erow[n / BR_BPW] = (int32_t)cur;
   // tier 3: past walk_max, Brent cycle detection
   if (status == WALK_CAP && !(use_fc && wk == fc)) {
     status = WALK_RUN;
@@ -133,7 +172,7 @@ __device__ int walk(const BrSites& a, const WalkCtx& w, int sid,
     int lam = 0, power = 1;
     while (status == WALK_RUN) {
       uint32_t sa;
-      const int ns = br_alt_next(a.table, wk, k, kmask, &sa);
+      const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
       const uint32_t wk2 = br_add(wk, sa, kmask);
       const bool accept = use_fc && wk2 == fc;
       const bool done_fill = !use_fc && n >= max_steps;
@@ -153,25 +192,27 @@ __device__ int walk(const BrSites& a, const WalkCtx& w, int sid,
   return status;
 }
 
-__device__ __forceinline__ BrAttempt walk_attempt(const BrSites& a,
-                                                  const WalkCtx& w, int mode,
-                                                  int c, int sid, int i,
-                                                  uint32_t reg, uint32_t corr,
-                                                  int lenf, int32_t* erow) {
+__device__ __forceinline__ BrAttempt walk_attempt(
+    const BrSites& a, const WalkCtx& w, int mode, int c, int lane,
+    uint32_t* hist, int i, uint32_t reg, uint32_t corr, int lenf,
+    int32_t* erow) {
   int err_len;
   uint32_t fc;
-  err_len_of(a, w, i, reg, lenf, &err_len, &fc);
+  err_len_warp(a, w, i, reg, lenf, lane, &err_len, &fc);
   bool use_fc = true;
   int max_steps = w.walk_max;
   if (mode == MODE_GAP) {
-    if (err_len == a.k) return br_one_attempt(a, c, i, corr, lenf, erow);
+    if (err_len == a.k)
+      return br_one_attempt_warp(a, c, i, corr, lenf, erow, lane);
     use_fc = err_len < a.k;
     max_steps = use_fc ? 0 : err_len - a.k;
   }
-  BrAttempt r;
   int n;
-  const int st = walk(a, w, sid, corr, fc, use_fc, max_steps, erow, &n,
-                      &r.new_kmer);
+  uint32_t wk;
+  const int st = walk_warp(a, w, lane, hist, corr, fc, use_fc, max_steps,
+                           erow, &n, &wk);
+  BrAttempt r;
+  r.new_kmer = wk;
   r.ok = use_fc ? st == WALK_ACCEPT : st == WALK_RUN;
   r.cap = st == WALK_CAP;
   r.cnt = n;
@@ -183,31 +224,43 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
     walk_sites_kernel(BrSites a, WalkCtx w, int mode, int c) {
   __shared__ int32_t sh_start[BR_MAX_R];
   __shared__ int32_t sh_len[BR_MAX_R];
+  extern __shared__ uint32_t sh_hist[];  // BR_WARP_SITES x (walk_max+1)
   br_stage_slots(a, sh_start, sh_len);
-  const int sid = blockIdx.x * BR_SITE_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
+  uint32_t* hist = sh_hist + (size_t)warp * (w.walk_max + 1);
   auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
                      int32_t* erow) {
-    return walk_attempt(a, w, mode, c, sid, i, reg, corr, lenf, erow);
+    return walk_attempt(a, w, mode, c, lane, hist, i, reg, corr, lenf,
+                        erow);
   };
-  br_site_chain(a, sid, sh_start, sh_len, attempt);
+  br_site_chain_warp(a, sid, lane, sh_start, sh_len, attempt);
 }
 
 extern "C" int br_walk_sites(
     const void* codes, const void* table, const void* kmers,
     const void* V, const void* s_pos, const void* n_sites,
     const void* rstart, const void* rlen, int CHUNK, int R, int k, int c,
-    int NS, int mode, int walk_max, int EW, void* hist, void* succ,
-    void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e,
-    void* stream) {
+    int NS, int mode, int walk_max, int EW, void* succ, void* s_cap,
+    void* rec_p, void* rec_c, void* rec_s, void* rec_e, void* stream) {
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, EW, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
   WalkCtx w;
   w.V = (const uint8_t*)V;
-  w.hist = (uint32_t*)hist;
   w.walk_max = walk_max;
-  walk_sites_kernel<<<br_site_blocks(NS), BR_SITE_THREADS, 0,
+  const size_t smem = (size_t)BR_WARP_SITES * (walk_max + 1) * 4;
+  // above 48 KB of dynamic shared memory a kernel has to ask for it
+  static size_t granted = 48 * 1024 - 2 * BR_MAX_R * 4;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        walk_sites_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
+  walk_sites_kernel<<<br_warp_site_blocks(NS), BR_SITE_THREADS, smem,
                       (cudaStream_t)stream>>>(a, w, mode, c);
   return (int)cudaGetLastError();
 }

@@ -45,7 +45,7 @@ KERNELS = {
     "two_sites": ("two_sites.cu", "br_two_sites", "pppppppiiiii" + "pppppp"
                   + "p"),
     "walk_sites": ("walk_sites.cu", "br_walk_sites", "pppppppp"
-                   + "iiiiiiii" + "ppppppp" + "p"),
+                   + "iiiiiiii" + "pppppp" + "p"),
     "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "ppppppp"
                      + "iiiiii" + "pppppp" + "p"),
 }

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (br_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k1-baseline CSRC_DIR]
+    python3 chip_smoke.py [--baseline CSRC_DIR]
 
 In order, each phase ending the run with a nonzero exit code if it fails:
 
@@ -24,11 +24,15 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    the first versions of this script timed them, with the host launching
    in the loop (call_ms); the plain versions' after a first warm call;
    each kernel's ms over its bound; beside K3's time the reads that set
-   it (the longest, and the one with the most visited sites); with
-   --k1-baseline, K1 as built from another tree's dense_probe.cu (its
-   first design: 1024-position tiles, three fills in its wrapper) is
-   checked too and timed beside this tree's, by the same method, in the
-   order baseline, this tree, this tree, baseline;
+   it (the longest, and the one with the most visited sites); beside
+   each site kernel its chain floor (chain_floor: the slowest site's
+   dependent global-memory round trips, one thread a site and a warp a
+   site, counted from the plain version's chains); with --baseline, K1,
+   K6 and K7 as built from another tree's csrc (the sources of commit
+   7c58891, the thread-per-site K6 and K7, with their own wrappers'
+   arguments) are checked too and timed beside this
+   tree's, by the same method, in the order baseline, this tree, this
+   tree, baseline;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, make_corrector, run_correction) with
@@ -38,9 +42,16 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 6. the wide profile's kernel checks, on the main path's first retry
    chunk (2^18 positions, 32 slots, walk_max 2040): K1 (and its
    baseline), K6 in both modes and K3 on their records, as in 4;
-7. output check: a seeded sample of 100 reads, and every read the device
+7. the long-walk chunk (long_walk_chunk: 2^20 positions, 512 slots, a
+   seeded branch-free genome whose planted errors walk past 248 and past
+   2,040 and revisit at 31-33, 247-249 and 2,039-2,041 steps): K6 in both
+   modes at walk_max 248 and 2040 (and its baseline) and K3 on their
+   records, as in 4, with the longest walk beside each time; there the
+   plain walk runs once, as the reference, timed and counted for the
+   chain floor in the same run;
+8. output check: a seeded sample of 100 reads, and every read the device
    did not finish, against the port's scalar oracle of the default chain;
-8. the first slice's path, `-c one`, on the first 500 reads, with its own
+9. the first slice's path, `-c one`, on the first 500 reads, with its own
    launch counts, fallback limit and oracle check.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
@@ -233,58 +244,221 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
     return visited, hi - lo, cum[hi] - cum[lo]
 
 
-def k1_baseline(csrc):
-    """K1 as built from ``csrc``/dense_probe.cu, another version of it
-    with the same C entry point, called the way its first design's
-    wrapper called it: 1024-position tiles, s_pos filled with BIG and
-    cap_read and the look-back state with zeros, three fills inside the
-    call.  Built with this tree's nvcc flags into the build directory;
-    calls are not counted in kernels.LAUNCHES."""
+def load_baseline(csrc):
+    """K1, K6 and K7 as built from another tree's ``csrc`` (those of
+    commit 7c58891: ``git archive 7c58891 br_tpu_torch/csrc``), each called with
+    its own wrapper's arguments: K1 and K7 through this tree's wrappers
+    (their C entry points did not change), K6 with the global history
+    scratch its entry point still takes, (walk_max+1) x NS words.  Built
+    with this tree's nvcc flags, one nvcc each, all at once; their calls
+    are not counted in kernels.LAUNCHES.  Returns {kernel name: function
+    with the arguments of the kernel's wrapper}."""
     import torch
 
     from br_tpu_torch import kernels
-    from br_tpu_torch.correct.layout import BIG
-    from br_tpu_torch.correct.probe import Dense
+    from br_tpu_torch.correct import greedy, probe, walk
+    from br_tpu_torch.correct.layout import walk_profile
+    from br_tpu_torch.correct.sites import empty_sites
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = kernels.BUILD_DIR / "libdense_probe_baseline.so"
-    r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", csrc,
-                        "-o", str(lib_path),
-                        os.path.join(csrc, "dense_probe.cu")],
-                       capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, f"K1 baseline build failed:\n{r.stdout}"
-                             f"{r.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).br_dense_probe
-    fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
-                   for ch in kernels.KERNELS["dense_probe"][2]]
-    fn.restype = ctypes.c_int
-    tile = 1024
+    entries = {"dense_probe": None, "greedy_sites": None,
+               "walk_sites": "pppppppp" + "iiiiiiii" + "ppppppp" + "p"}
+    procs = {}
+    for name in entries:
+        out = kernels.BUILD_DIR / f"lib{name}_baseline.so"
+        procs[name] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", csrc, "-o",
+             str(out), os.path.join(csrc, kernels.KERNELS[name][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log_, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
+        lib = ctypes.CDLL(str(out))
+        entry, sig = kernels.KERNELS[name][1:]
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
+                       for ch in entries[name] or sig]
+        fn.restype = ctypes.c_int
+        lib.br_error_string.argtypes = [ctypes.c_int]
+        lib.br_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+        regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"  ptxas {name} (baseline): {' | '.join(regs)}")
 
-    def call(table, codes, rstart, rlen, k, NS):
-        CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
-        out = [torch.empty(CHUNK, dtype=dt, device=dev)
-               for dt in (torch.int32, torch.bool, torch.bool, torch.bool)]
-        s_pos = torch.full((NS,), BIG, dtype=torch.int32, device=dev)
-        n_sites = torch.empty(1, dtype=torch.int32, device=dev)
-        cap_read = torch.zeros(R, dtype=torch.bool, device=dev)
-        ntiles = (CHUNK + tile - 1) // tile
-        scratch = torch.zeros(ntiles + 1, dtype=torch.int64, device=dev)
-        args = [codes, table, rstart, rlen, CHUNK, R, k, NS, *out, s_pos,
-                cap_read, n_sites, scratch, scratch[ntiles:]]
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], kernels.stream_of(dev))
-        check(err == 0, f"K1 baseline launch failed ({err})")
-        return Dense(*out, s_pos, n_sites, cap_read)
-    return call
+    def through(name, wrapper):
+        """The wrapper, launching the baseline library."""
+        def call(*args):
+            own, count = kernels._LIBS.get(name), kernels.LAUNCHES[name]
+            kernels._LIBS[name] = libs[name]
+            try:
+                return wrapper(*args)
+            finally:
+                kernels._LIBS[name] = own
+                kernels.LAUNCHES[name] = count
+        return call
+
+    def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen, k,
+                   c, strategy, walk_max):
+        NS, dev = s_pos.shape[0], codes.device
+        ew = walk_profile(walk_max).ew
+        out = empty_sites(NS, ew, dev)
+        hist = torch.empty((walk_max + 1) * NS, dtype=torch.int32,
+                           device=dev)
+        args = [codes, table, kmers, V, s_pos, n_sites, rstart, rlen,
+                codes.shape[0], rstart.shape[0], k, c, NS,
+                walk.MODES[strategy], walk_max, ew, hist, *out]
+        err = libs["walk_sites"].br_walk_sites(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args], kernels.stream_of(dev))
+        check(err == 0, f"baseline walk_sites launch failed ({err})")
+        return out
+
+    return {"dense_probe": through("dense_probe", probe.dense_probe),
+            "greedy_sites": through("greedy_sites", greedy.greedy_sites),
+            "walk_sites": walk_sites}
 
 
-def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
+def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
+    """The chain floor of a site kernel on one chunk: the slowest site's
+    count of dependent global-memory round trips under the old design
+    (one thread per site: K2, K5, and K6 and K7 up to commit 7c58891) and
+    under the new one (a warp per site: K6 and K7 now), counted from the
+    plain version's chains on this chunk; and the longest walk in steps
+    (K6), with the plain version's output.  A round trip is a set of loads none of which waits on
+    another's value or on a branch taken on one.  Per chain step: the
+    gate, 1; the attempt; the dirty simulation, old one a probe it made,
+    new 1; at the chain's end the successor search, old a binary search
+    (ceil(log2(n+1)) loads), new a 32-way warp search (ceil(log32(n+1))).
+    Per attempt: K2's One attempt 1; K5's two attempt at most
+    1 + 13 (c + 2), its bound (K5 is not redesigned); K6's err_len, old
+    one a k-mer absorbed (up to k) then one a V byte read up to the valid
+    position and the k-mer there, new 1 then one a 512-position block and
+    the k-mer; K6's walk, a step each, and old also one a history word
+    read in the steps up to walk_max (new reads shared memory); K7's walk,
+    old ms steps, new up to its failing step, and its validation probes,
+    old one each until one fails for every step tried, new 1.  Returns
+    (old, new, longest walk, the plain version's Sites)."""
+    import math
+
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct import greedy, sites, two, walk
+    from br_tpu_torch.correct.layout import walk_profile
+
+    NS, dev = d.s_pos.shape[0], codes.device
+    n_eff = min(int(d.n_sites[0]), NS)
+    old = torch.zeros(NS, dtype=torch.long, device=dev)
+    new = torch.zeros_like(old)
+    pending, longest = [], [0]
+    nv = walk.next_valid(d.V) if kind in walk.MODES else None
+
+    tc = torch_cases()
+
+    def walk_rounds(code_at, ii, rg, corr, lf):
+        with tc.record_attempts(walk, ["walk_plain"]) as calls:
+            res = walk.walk_attempt_plain(probe_[0], code_at, k, c, nv,
+                                          d.kmers, kind, walk_max, ii, rg,
+                                          corr, lf)
+        err, _fc = walk.err_len_plain(probe_[0], code_at, k, nv, d.kmers,
+                                      ii, rg, lf)
+        span = err - k   # V bytes read past i+k+1 (up to the valid one)
+        vblocks = (ii + err + 1 - ((ii + k + 1) & ~15) + 511) // 512
+        o_err = torch.where(err > k, k + span + 1, torch.clamp(err, max=k))
+        n_err = torch.where(err > k, 1 + vblocks + 1, 1)
+        walking = (err != k) | torch.full_like(err, kind == "graph",
+                                               dtype=torch.bool)
+        steps = torch.zeros_like(err)
+        if calls["walk_plain"] and steps.numel():
+            n = calls["walk_plain"][0][1][3]
+            steps[walking.nonzero().squeeze(1)] = n - 1
+            longest[0] = max(longest[0], int(steps.max()))
+        s1 = steps.clamp(max=walk_max)
+        o_walk = torch.where(walking, steps + s1 * (s1 + 1) // 2, 1)
+        n_walk = torch.where(walking, steps, 1)
+        return res, o_err + o_walk, n_err + n_walk
+
+    def greedy_rounds(code_at, ii, rg, corr, lf):
+        with tc.record_attempts(greedy, ["traceback_offset"]) as calls:
+            res = greedy.greedy_attempt_plain(probe_[0], code_at, k, ms, c,
+                                              ii, rg, corr, lf)
+        rem = lf - ii
+        wk, wks = corr, [corr]
+        fail = torch.full_like(ii, ms)
+        for s_ in range(ms):
+            ns, sa = sites.alt_next(probe_[0], wk, k)
+            nxt = torch.where(ns != 1, wk, dc.add_nuc(wk, sa, k))
+            rev = torch.stack([nxt == w for w in wks]).any(0)
+            fail = torch.where((fail == ms) & ((ns != 1) | rev), s_, fail)
+            wks.append(nxt)
+            wk = nxt
+        last = torch.where(res.ok, res.cnt - 2,
+                           torch.minimum(torch.minimum(fail, rem + 1),
+                                         torch.full_like(ii, ms)) - 1)
+        o_val = torch.zeros_like(ii)
+        for it, (_args, (exists, _o)) in enumerate(
+                calls["traceback_offset"]):
+            km, alive = wks[it + 1], (rem - it >= c)
+            tried = torch.zeros_like(ii)
+            for t in range(c):
+                km = dc.add_nuc(km, code_at(ii + it + t), k)
+                tried = tried + alive.long()
+                alive = alive & probe_[0](km)
+            o_val = o_val + torch.where(exists & (it <= last), tried, 0)
+        n_walk = torch.minimum(fail + 1, torch.full_like(fail, ms))
+        return res, ms + o_val, n_walk + (last >= 0).long()
+
+    probe_ = [None]
+
+    def attempt(probe, code_at, ii, rg, corr, lf):
+        probe_[0] = probe
+        if kind in walk.MODES:
+            res, o, n = walk_rounds(code_at, ii, rg, corr, lf)
+        elif kind == "greedy":
+            res, o, n = greedy_rounds(code_at, ii, rg, corr, lf)
+        elif kind == "two":
+            res = two.two_attempt_plain(probe, code_at, k, c, ii, rg, corr,
+                                        lf)
+            o = n = torch.full_like(ii, 1 + 13 * (c + 2))
+        else:
+            res = sites.one_attempt_plain(probe, code_at, k, c, ii, corr, lf)
+            o = n = torch.ones_like(ii)
+        pending.append((o, n))
+        return res
+
+    log2 = math.ceil(math.log2(n_eff + 1))
+    log32 = math.ceil(math.log(n_eff + 1, 32))
+
+    def trace(act, gate, probes, search):
+        o_att, n_att = pending.pop()
+        g = gate.nonzero().squeeze(1)
+        oa = torch.zeros_like(probes)
+        na = torch.zeros_like(probes)
+        oa[g], na[g] = o_att, n_att
+        old[act] += 1 + oa + probes + search.long() * log2
+        new[act] += 1 + na + (probes > 0).long() + search.long() * log32
+
+    ew = walk_profile(walk_max).ew if kind in walk.MODES else 1
+    out = sites.run_sites_plain(table, codes, d.kmers, d.s_pos, d.n_sites,
+                                rs, rl, k, ew, attempt, trace)
+    return int(old.max()), int(new.max()), longest[0], out
+
+
+def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
                   reps=10, plain_reps=2, baseline=None):
-    """Kernels against their plain versions on one chunk: K1-K7 at the
-    default walk profile, or (``wide``, on a retry chunk) K1, K6 in both
-    modes at walk_max 2040 and K3 on their records; ``baseline`` (from
-    k1_baseline) is checked and timed beside K1.  Returns {name: {ms,
-    plain_ms, bound_ms, max_abs_err}}; names with a bracket are a
+    """Kernels against their plain versions on one chunk: on the first
+    chunk K1-K7 at the default walk profile; on a retry chunk
+    (``kind="retry"``) K1, K6 in both modes at walk_max 2040 and K3 on
+    their records; on the long-walk chunk (``kind="long"``) K6 in both
+    modes at walk_max 248 and 2040 and K3 on their records.  With
+    ``plain_reps`` 0 a plain version runs once: its time is that call's,
+    and a walk's is the chain-floor run.  ``baseline``
+    (from load_baseline) gives K1, K6 and K7 as another tree built them:
+    each is checked and timed beside this tree's.  Returns {name: {ms,
+    plain_ms, bound_ms, max_abs_err, ...}}; names with a bracket are a
     kernel's further configurations."""
     import torch
 
@@ -300,10 +474,19 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
     codes = dc.unpack_codes(torch.from_numpy(packed).to(device), CHUNK)
     rs = torch.from_numpy(rstart).to(device)
     rl = torch.from_numpy(rlen).to(device)
+    base = baseline or {}
     res = {}
 
-    def run(name, kern, plain, nbytes, kreps=reps, view=tuple):
+    def based(name, *args):
+        """The baseline's call of kernel ``name`` on args, or None."""
+        return (lambda: base[name](*args)) if name in base else None
+
+    def run(name, kern, plain, nbytes, kreps=reps, view=tuple, kb=None):
+        sync()
+        t0 = time.perf_counter()
         b = plain()   # also the plain version's warm call
+        sync()
+        plain_once = (time.perf_counter() - t0) * 1e3
         a = kern()
         sync()
         if callable(nbytes):
@@ -313,7 +496,8 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
                         f"(max abs err {err})")
         res[name] = {"ms": cuda_ms(kern, kreps, sync, queued=True),
                      "call_ms": cuda_ms(kern, kreps, sync, warm=False),
-                     "plain_ms": cuda_ms(plain, plain_reps, sync, warm=False),
+                     "plain_ms": (cuda_ms(plain, plain_reps, sync, warm=False)
+                                  if plain_reps else plain_once),
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "max_abs_err": err}
         log(f"kernel {name}: " + json.dumps(
@@ -322,7 +506,33 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
              "plain_ms": res[name]["plain_ms"],
              "bound_ms": res[name]["bound_ms"],
              "ms_over_bound": res[name]["ms"] / res[name]["bound_ms"]}))
+        if kb is not None:
+            err = max_abs_err(view(kb()), view(b))
+            check(err == 0, f"{name}: the baseline and the plain version "
+                            f"differ (max abs err {err})")
+            fns = (kb, kern)
+            t = [cuda_ms(fns[i], kreps, sync, queued=True) for i in (0, 1, 1, 0)]
+            res[name]["baseline_ms"] = [t[0], t[3]]
+            log(f"kernel {name} beside its baseline: " + json.dumps(
+                {"baseline_ms": [t[0], t[3]], "kernel_ms": [t[1], t[2]],
+                 "baseline_call_ms": cuda_ms(kb, kreps, sync, warm=False),
+                 "bound_ms": res[name]["bound_ms"]}))
         return b
+
+    floors = {}
+
+    def floor(name, *args, **kw):
+        """The chain floor, counted from a plain run; the run's output."""
+        o, n, longest, out = chain_floor(*args, **kw)
+        floors[name] = (o, n, longest)
+        return out
+
+    def log_floor(name):
+        o, n, longest = floors[name]
+        res[name].update(floor_old=o, floor_new=n)
+        log(f"  {name}: chain floor {o} dependent round trips one thread a "
+            f"site, {n} a warp a site" + (f"; longest walk {longest} steps"
+                                          if longest else ""))
 
     # K1: codes, slot tables, the distinct bitfield words the probes read;
     # k-mers, three masks, the site list
@@ -334,41 +544,40 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
     n_eff = min(int(d_plain.n_sites[0]), NS)
     k1_bytes = (CHUNK + 8 * R + 4 * words
                 + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    k1_name = "dense_probe[retry chunk]" if wide else "dense_probe"
+    k1_name = {"first": "dense_probe", "retry": "dense_probe[retry chunk]",
+               "long": "dense_probe[long-walk chunk]"}[kind]
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
-            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20)
-    if baseline is not None:
-        err = max_abs_err(baseline(*d_args), d_plain)
-        check(err == 0, f"{k1_name}: the baseline and the plain version "
-                        f"differ (max abs err {err})")
-        fns = (lambda: baseline(*d_args), lambda: probe.dense_probe(*d_args))
-        t = [cuda_ms(fns[i], 20, sync, queued=True) for i in (0, 1, 1, 0)]
-        log(f"kernel {k1_name} beside its baseline: " + json.dumps(
-            {"baseline_ms": [t[0], t[3]], "kernel_ms": [t[1], t[2]],
-             "baseline_call_ms": cuda_ms(fns[0], 20, sync, warm=False),
-             "kernel_call_ms": cuda_ms(fns[1], 20, sync, warm=False),
-             "bound_ms": res[k1_name]["bound_ms"]}))
+            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20,
+            kb=None if kind == "long" else based("dense_probe", *d_args))
 
-    def site_run(name, kern, plain, window, kreps=reps):
+    def site_run(name, kern, plain, window, kreps=reps, kb=None):
         """A site kernel, compared on the entries it writes; its bytes
         from the plain version's records."""
         return run(name, kern, plain,
                    lambda out: sites_bytes(NS, n_eff, R, CHUNK, window, out),
-                   kreps, view=sites.defined)
+                   kreps, view=sites.defined, kb=kb)
 
     def walk_run(st, wm):
         w_args = (table, codes, d.kmers, d.V, d.s_pos, d.n_sites, rs, rl, k,
                   c, st, wm)
-        # the walk scans V to the error's end; the history scratch is the
-        # kernel's own and not counted
-        name = "walk_sites" if (wm, st) == (WALK_MAX, "graph") else \
-            f"walk_sites[{st},walk_max={wm}]"
-        out = site_run(name, lambda: walk.walk_sites(*w_args),
-                       lambda: walk.walk_sites_plain(*w_args), 3 * k + c, 3)
+        # the walk scans V to the error's end
+        where = {"first": "", "retry": "retry chunk,",
+                 "long": "long-walk chunk,"}[kind]
+        name = ("walk_sites" if (kind, wm, st) == ("first", WALK_MAX, "graph")
+                else f"walk_sites[{where}{st},walk_max={wm}]")
+        f_args = (name, st, table, codes, d, rs, rl, k, c, ms)
+        if plain_reps:
+            plain = lambda: walk.walk_sites_plain(*w_args)  # noqa: E731
+            floor(*f_args, walk_max=wm)
+        else:   # one plain run: the reference, its time and the floor
+            plain = lambda: floor(*f_args, walk_max=wm)  # noqa: E731
+        out = site_run(name, lambda: walk.walk_sites(*w_args), plain,
+                       3 * k + c, 3, kb=based("walk_sites", *w_args))
         used = out.rec_p < BIG
         log(f"  {name}: {int(used.sum())} records, longest emit "
             f"{int(out.rec_c[used].max()) if bool(used.any()) else 0} "
             f"bases, {int((out.s_cap == CAP_ATTEMPT).sum())} walk caps")
+        log_floor(name)
         return out
 
     # K3: the read bases it copies, the slot and site tables and the
@@ -397,25 +606,34 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
             f"({int(rl[most])} bases); windows of {splice.WINDOW} sites")
         return x_plain, n_rec
 
-    if wide:
-        for st in ("graph", "gap-size"):
-            w = walk_run(st, WIDE_WALK_MAX)
-            k3(f"chain_splice[{st} records,walk_max={WIDE_WALK_MAX}]", w)
-        log(f"retry chunk: {int((rl > 0).sum())} reads, {int(rl.sum())} "
-            f"bases, {int(d.n_sites[0])} sites")
+    if kind != "first":
+        tag = "retry chunk" if kind == "retry" else "long-walk chunk"
+        for wm in (WIDE_WALK_MAX,) if kind == "retry" else (WALK_MAX,
+                                                            WIDE_WALK_MAX):
+            for st in ("graph", "gap-size"):
+                w = walk_run(st, wm)
+                k3(f"chain_splice[{tag},{st} records,walk_max={wm}]", w)
+        log(f"{tag}: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
+            f"{int(d.n_sites[0])} sites")
         return res
 
     # the site kernels on K1's output
     s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k)
     s = site_run("one_sites", lambda: sites.one_sites(*s_args, c),
                  lambda: sites.one_sites_plain(*s_args, c), c + 3 + k, 20)
+    floor("one_sites", "one", table, codes, d, rs, rl, k, c, ms)
+    log_floor("one_sites")
     site_run("two_sites", lambda: two.two_sites(*s_args, c),
              lambda: two.two_sites_plain(*s_args, c), c + 6 + k)
+    floor("two_sites", "two", table, codes, d, rs, rl, k, c, ms)
+    log_floor("two_sites")
     g = walk_run("graph", WALK_MAX)
     walk_run("gap-size", WALK_MAX)
     site_run("greedy_sites", lambda: greedy.greedy_sites(*s_args, ms, c),
              lambda: greedy.greedy_sites_plain(*s_args, ms, c), ms + c + k,
-             3)
+             3, kb=based("greedy_sites", *s_args, ms, c))
+    floor("greedy_sites", "greedy", table, codes, d, rs, rl, k, c, ms)
+    log_floor("greedy_sites")
     x, n_rec = k3("chain_splice", s)
     k3("chain_splice[graph records]", g)
 
@@ -427,6 +645,40 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, wide=False,
     log(f"first chunk: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
         f"{int(d.n_sites[0])} sites, {n_rec} visited `one` records")
     return res
+
+
+def torch_cases():
+    """tests/torch_cases.py, the seeded generators of the port's tests
+    (it imports numpy and br_tpu_torch; JAX only inside the functions
+    that record the JAX package's outputs, which nothing here calls)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_cases as tc
+
+    return tc
+
+
+def long_walk_chunk(device):
+    """The long-walk chunk at the main path's geometry (CHUNK = 2^20,
+    R = 512, k = 13), drawn by tests/torch_cases.walk_stress_case from
+    SEED: a branch-free genome, reads with planted deletions of 100-2,500
+    bases (graph walks past 248 and past 2,040), random stretches (fills),
+    substitutions, nested deletions past SLOTS, and chimeras into tandem
+    repeats whose walks revisit at steps 31-33, 247-249 and 2,039-2,041
+    (those past walk_max found by Brent).  Returns (bitfield, (packed,
+    rstart, rlen))."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct.layout import WALK_MAX, WIDE_WALK_MAX
+    from br_tpu_torch.set.solid import SolidSet
+
+    pieces, codes, rstart, rlen = torch_cases().walk_stress_case(
+        SEED, (WALK_MAX, WIDE_WALK_MAX), chunk=1 << 20, nreads=512,
+        deletions=(100, 2500), flanks=(200, 1500))
+    packed = dc.pack_codes(torch.from_numpy(codes)).numpy()
+    table = SolidSet.from_sequences(pieces, K).device_words(device)
+    return table, (packed, rstart, rlen)
 
 
 def instrument(corrector):
@@ -534,10 +786,10 @@ def oracle_check(label, out, seqs, chain, solid, host):
         f"corrected), {time.perf_counter() - t0:.1f} s")
 
 
-def main_path(workdir, device, sync, card, build, k1_base=None):
+def main_path(workdir, device, sync, card, build, base_dir=None):
     """Corpus, kernel checks, the default-chain CLI path and its output
     check, then the `-c one` path.  ``build`` is called before the first
-    kernel is needed; ``k1_base`` is a K1 baseline's csrc directory or
+    kernel is needed; ``base_dir`` is a baseline's csrc directory or
     None.  Returns the per-kernel summary entries."""
     from br_tpu_torch import DEFAULT_CORRECTIONS, cli, kernels, runtime
     from br_tpu_torch.corpus import write_corpus
@@ -565,7 +817,7 @@ def main_path(workdir, device, sync, card, build, k1_base=None):
     first = corrector._chunk_arrays(seqs, idxs, starts)
 
     build()
-    baseline = k1_baseline(k1_base) if k1_base else None
+    baseline = load_baseline(base_dir) if base_dir else None
     checks = kernel_checks(corrector.table, first, K, C, MS, device, sync,
                            baseline=baseline)
 
@@ -597,7 +849,11 @@ def main_path(workdir, device, sync, card, build, k1_base=None):
           f"(> {MAX_FALLBACK:.0%})")
     check(bool(retry), "the main path retried no chunk on the wide sibling")
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
-                                sync, wide=True, baseline=baseline))
+                                sync, kind="retry", baseline=baseline))
+    lw_table, lw_chunk = long_walk_chunk(device)
+    checks.update(kernel_checks(lw_table, lw_chunk, K, C, MS, device, sync,
+                                kind="long", plain_reps=0,
+                                baseline=baseline))
     oracle_check("default chain", out, seqs, args.corrections, solid,
                  corrector.last_host)
 
@@ -639,9 +895,11 @@ def main_path(workdir, device, sync, card, build, k1_base=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--k1-baseline", metavar="CSRC_DIR",
-                    help="also time K1 as built from this directory's "
-                         "dense_probe.cu (with its first design's wrapper)")
+    ap.add_argument("--baseline", metavar="CSRC_DIR",
+                    help="also check and time K1, K6 and K7 as built from "
+                         "this directory's dense_probe.cu, walk_sites.cu and "
+                         "greedy_sites.cu (the thread-per-site K6 and K7: "
+                         "git archive 7c58891 br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
         import torch
@@ -690,7 +948,7 @@ def main():
         with tempfile.TemporaryDirectory() as work:
             entries = main_path(work, device, sync=torch.cuda.synchronize,
                                 card=card, build=join_build,
-                                k1_base=opts.k1_baseline)
+                                base_dir=opts.baseline)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -14,12 +14,13 @@ import pytest
 import torch
 
 import torch_cases as tc
-from br_tpu_torch import kernels
+from br_tpu_torch import codec, kernels
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct import greedy, probe, reverse, sites, splice, two
 from br_tpu_torch.correct import walk
 from br_tpu_torch.correct.engine3 import Torch3Corrector, make_pass3_fn
-from br_tpu_torch.correct.layout import WIDE_WALK_MAX, site_capacity
+from br_tpu_torch.correct.layout import (
+    BIG, CAP_ATTEMPT, CAP_OVERFLOW, WIDE_WALK_MAX, site_capacity)
 from br_tpu_torch.correct.reference import build_methods, correct_read
 from br_tpu_torch.correct.sites import Sites
 from br_tpu_torch.set.solid import SolidSet
@@ -255,3 +256,99 @@ def test_unpack_pack_on_card(dev):
     packed = dc.pack_codes(codes.to(dev))
     assert torch.equal(packed.cpu(), dc.pack_codes(codes))
     assert torch.equal(dc.unpack_codes(packed, 4096).cpu(), codes)
+
+
+# Adversarial inputs of K6 and K7 (tests/torch_cases.py): walks past
+# walk_max, revisits at and around it, Brent cycles, fills, V scans to the
+# read end, nested repairs past SLOTS; greedy attempts decided at every
+# step, walks failing at step 0, reads ending inside the walk.
+
+WALK_STRESS = {
+    "default": dict(seed=1, walk_max=248, chunk=1 << 16, nreads=64,
+                    long_period=600),
+    "wide": dict(seed=2, walk_max=WIDE_WALK_MAX, chunk=1 << 17, nreads=48,
+                 wide_slots=True, deletions=(2000, 2600), long_period=2600),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_stress(name):
+    return tc.walk_stress_case(**WALK_STRESS[name])
+
+
+def _on_card(dev, pieces, codes, rstart, rlen):
+    table = SolidSet.from_sequences(pieces, tc.K).device_words(dev)
+    c, rs, rl = (torch.from_numpy(x).to(dev) for x in (codes, rstart, rlen))
+    d = probe.dense_probe_plain(table, c, rs, rl, tc.K,
+                                site_capacity(len(codes)))
+    return table, c, rs, rl, d
+
+
+@pytest.mark.parametrize("strategy", ["graph", "gap-size"])
+@pytest.mark.parametrize("case", list(WALK_STRESS))
+def test_walk_sites_stress(dev, case, strategy):
+    """K6 against its plain version where walks run long: to and past
+    walk_max, revisits one step before, at and after it, Brent past it,
+    fills, the V scan to the read end, a site past SLOTS records; and K3
+    on the kernel's records."""
+    table, c, rs, rl, d = _on_card(dev, *_walk_stress(case))
+    wm = WALK_STRESS[case]["walk_max"]
+    args = (table, c, d.kmers, d.V, d.s_pos, d.n_sites, rs, rl, tc.K, tc.C,
+            strategy, wm)
+    before = kernels.LAUNCHES["walk_sites"]
+    s = walk.walk_sites(*args)
+    sp = walk.walk_sites_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk_sites"] == before + 1
+    _same(sites.defined(s), sites.defined(sp))
+    used = sp.rec_p < BIG
+    assert bool((sp.s_cap == CAP_ATTEMPT).any())
+    assert bool((sp.s_cap == CAP_OVERFLOW).any())
+    assert int(sp.rec_c[used].max()) >= wm - 16
+    x_args = (c, rs, rl, d.s_pos, d.n_sites, sp, d.cap_read)
+    _same(splice.chain_splice(*x_args[:5], s, d.cap_read),
+          splice.chain_splice_plain(*x_args))
+
+
+def test_walk_stress_case_revisits_at_walk_max(dev):
+    """The plain walk on the card: the tandem repeats of the wide case
+    with periods walk_max - 1 and walk_max make the walk revisit one step
+    before walk_max and at it, and both decline (the CPU tests check the
+    same at a small walk_max)."""
+    pieces = _walk_stress("wide")[0]
+    table = SolidSet.from_sequences(pieces, tc.K).device_words(dev)
+    probe_ = dc.make_solid_probe_any(table, tc.K)
+    units = [p for p in pieces
+             if len(p) - (tc.K - 1) in (WIDE_WALK_MAX - 1, WIDE_WALK_MAX)]
+    assert len(units) == 2
+    corr = torch.tensor([codec.seq2bit(p[:tc.K]) for p in units],
+                        device=dev)
+    ok, cap, _buf, n, _wk = walk.walk_plain(
+        probe_, tc.K, corr, torch.full_like(corr, -1),
+        torch.ones(2, dtype=torch.bool, device=dev), torch.zeros_like(corr),
+        WIDE_WALK_MAX)
+    assert not bool((ok | cap).any())
+    assert sorted((n - 1).tolist()) == [WIDE_WALK_MAX - 1, WIDE_WALK_MAX]
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_greedy_sites_stress(dev, seed):
+    """K7 against its plain version on reads with error clusters: every
+    step decides somewhere, walks fail at step 0 and branch, reads end
+    inside the walk; and K3 on the kernel's records."""
+    table, c, rs, rl, d = _on_card(dev, *tc.greedy_stress_case(
+        seed, chunk=1 << 18, nreads=256))
+    args = (table, c, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K, tc.MS,
+            tc.C)
+    before = kernels.LAUNCHES["greedy_sites"]
+    s = greedy.greedy_sites(*args)
+    sp = greedy.greedy_sites_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["greedy_sites"] == before + 1
+    _same(sites.defined(s), sites.defined(sp))
+    used = sp.rec_p < BIG
+    cnt = sp.rec_c[used]
+    assert set(range(2, tc.MS + 2)) <= set(cnt.tolist())   # every it
+    x_args = (c, rs, rl, d.s_pos, d.n_sites, sp, d.cap_read)
+    _same(splice.chain_splice(*x_args[:5], s, d.cap_read),
+          splice.chain_splice_plain(*x_args))

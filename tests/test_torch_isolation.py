@@ -19,6 +19,8 @@ import br_tpu_torch.correct.two, br_tpu_torch.correct.walk
 import br_tpu_torch.correct.greedy, br_tpu_torch.correct.reference
 import br_tpu_torch.correct.alignment
 import chip_smoke
+sys.path.insert(0, 'tests')
+import torch_cases  # chip_smoke.long_walk_chunk draws its chunk with it
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'br_tpu'))
 print(' '.join(bad))

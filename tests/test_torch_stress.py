@@ -1,16 +1,20 @@
-"""The adversarial inputs of K1 and K3 (``torch_cases.dense_stress_case``
-and ``splice_stress_case``) hold what the card's tests rely on: checked
-here, at a small size, through the kernels' plain versions on the CPU.
-The kernels themselves meet these inputs in tests/test_torch_cuda.py."""
+"""The adversarial inputs of K1, K3, K6 and K7
+(``torch_cases.dense_stress_case``, ``splice_stress_case``,
+``walk_stress_case`` and ``greedy_stress_case``) hold what the card's
+tests rely on: checked here, at a small size, through the kernels' plain
+versions on the CPU.  The kernels themselves meet these inputs in
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
 import torch
 
 import torch_cases as tc
-from br_tpu_torch.correct import probe, splice
-from br_tpu_torch.correct.layout import BIG
+from br_tpu_torch.correct import device_codec as dc
+from br_tpu_torch.correct import greedy, probe, sites, splice, walk
+from br_tpu_torch.correct.layout import BIG, CAP_OVERFLOW, site_capacity
 from br_tpu_torch.correct.sites import Sites
+from br_tpu_torch.set.solid import SolidSet
 
 CHUNK = 1 << 15
 
@@ -124,3 +128,108 @@ def test_chain_splice_refuses_slot_tables_the_kernel_cannot_stage(R):
             torch.full((R,), CHUNK, **i32), torch.zeros(R, **i32),
             torch.full((NS,), BIG, **i32), torch.zeros(1, **i32), sites,
             torch.zeros(R, dtype=torch.bool))
+
+
+# K6 and K7: the adversarial inputs of tests/test_torch_cuda.py hold their
+# patterns through the plain walk and greedy attempts (recorded with
+# torch_cases.record_attempts).  The walk patterns are checked at a small
+# walk_max, where the plain walk's step loop is short.
+
+WM = 64
+
+
+def _sites_inputs(pieces, codes, rstart, rlen):
+    table = SolidSet.from_sequences(pieces, tc.K).device_words("cpu")
+    c, rs, rl = (torch.from_numpy(x) for x in (codes, rstart, rlen))
+    d = probe.dense_probe_plain(table, c, rs, rl, tc.K,
+                                site_capacity(len(codes)))
+    return table, c, rs, rl, d
+
+
+@pytest.mark.parametrize("strategy", ["graph", "gap-size"])
+def test_walk_stress_case_covers_its_patterns(strategy):
+    table, c, rs, rl, d = _sites_inputs(*tc.walk_stress_case(
+        5, walk_max=WM, deletions=(40, 120), flanks=(30, 90)))
+    with tc.record_attempts(walk, ["walk_plain", "err_len_plain"]) as calls:
+        s = walk.walk_sites_plain(table, c, d.kmers, d.V, d.s_pos,
+                                  d.n_sites, rs, rl, tc.K, tc.C, strategy,
+                                  WM)
+    ok, cap, n = (torch.cat([o[j] for _a, o in calls["walk_plain"]])
+                  for j in (0, 1, 3))
+    fill = ~torch.cat([a[4] for a, _o in calls["walk_plain"]])
+    err = torch.cat([o[0] for _a, o in calls["err_len_plain"]])
+    rem = torch.cat([a[7] - a[5] for a, _o in calls["err_len_plain"]])
+    steps = set((n[~ok & ~cap] - 1).tolist())        # declined at step
+    assert {31, 32, 33, WM - 1, WM} <= steps         # revisits, to walk_max
+    assert max(steps) > WM + 1                       # Brent past walk_max
+    assert bool((cap & (n == WM + 1)).any())         # capped at walk_max
+    assert bool((err > 32).any())                    # long error stretches
+    assert bool(((err > tc.K) & (err == rem)).any())  # V scan to read end
+    assert bool((s.s_cap == CAP_OVERFLOW).any())     # a site past SLOTS
+    if strategy == "gap-size":
+        assert bool((err == tc.K).any())             # the One attempt
+        assert bool((fill & ok).any()) and bool((fill & cap).any())
+
+
+def _gotoh_ties(x, y):
+    """Cells of rust-bio's DP (scores as greedy.align_tables) where the
+    Match/Subst score ties Ins or Del at the best."""
+    NEG = greedy.NEG
+    S = [0] + [-1 - j for j in range(1, len(y) + 1)]
+    I = [NEG] * (len(y) + 1)
+    ties = 0
+    for r in range(1, len(x) + 1):
+        Sn, In, D = [-1 - r], [-1 - r], NEG
+        for j in range(1, len(y) + 1):
+            i_n = max(I[j] - 1, S[j] - 2)
+            D = max(D - 1, Sn[j - 1] - 2)
+            diag = S[j - 1] + (1 if x[r - 1] == y[j - 1] else -1)
+            best = max(diag, i_n, D)
+            ties += diag == best and (i_n == best or D == best)
+            Sn.append(best)
+            In.append(i_n)
+        S, I = Sn, In
+    return ties
+
+
+def test_greedy_stress_case_covers_its_patterns():
+    table, c, rs, rl, d = _sites_inputs(*tc.greedy_stress_case(
+        5, chunk=1 << 15, nreads=64))
+    with tc.record_attempts(greedy, ["greedy_attempt_plain"]) as calls:
+        greedy.greedy_sites_plain(table, c, d.kmers, d.s_pos, d.n_sites, rs,
+                                  rl, tc.K, tc.MS, tc.C)
+    ties = walk_fail0 = rem_cut = last_probe = 0
+    its = set()
+    for (probe_, code_at, k, ms, nb, ii, rg, corr, lf), a in calls[
+            "greedy_attempt_plain"]:
+        rem = lf - ii
+        its |= set((a.cnt[a.ok] - 2).tolist())
+        wk, wks = corr, [corr]
+        fail = torch.full_like(ii, ms)
+        for st in range(ms):
+            ns, sa = sites.alt_next(probe_, wk, k)
+            nxt = torch.where(ns != 1, wk, dc.add_nuc(wk, sa, k))
+            rev = torch.stack([nxt == w for w in wks]).any(0)
+            fail = torch.where((fail == ms) & ((ns != 1) | rev), st, fail)
+            wks.append(nxt)
+            wk = nxt
+        walk_fail0 += int((fail == 0).sum())
+        # the read ends before a step the walk reached: rem < it decides
+        rem_cut += int((~a.ok & (rem + 1 < torch.clamp(fail, max=ms))).sum())
+        for it in range(ms):       # validation failing on its last probe
+            km, alive = wks[it + 1], rem - it >= nb
+            for t in range(nb):
+                km = dc.add_nuc(km, code_at(ii + it + t), k)
+                v = probe_(km)
+                if t == nb - 1:
+                    last_probe += int((alive & ~v).sum())
+                alive = alive & v
+        pre = rg >> 2
+        for j in range(min(40, len(ii))):
+            before = [int(pre[j] >> (2 * (k - 2 - t))) & 3
+                      for t in range(k - 1)]
+            read = [int(code_at(ii[j:j + 1] + t)) for t in range(ms - 1)]
+            path = [int(corr[j]) & 3] + [int((w[j] & 3)) for w in wks[1:]]
+            ties += _gotoh_ties(before + read, before + path) > 0
+    assert its == set(range(tc.MS))          # every step decides somewhere
+    assert walk_fail0 and rem_cut and last_probe and ties

@@ -108,17 +108,17 @@ def slot_len(n: int, wide: bool = False) -> int:
     return s + (-s) % 32
 
 
-def pack(reads, caps=None, rng=None):
+def pack(reads, caps=None, rng=None, chunk=CHUNK, nreads=R):
     """(codes, rstart, rlen) of one chunk; ``caps`` overrides slot sizes.
     Slack after each read holds stale random codes (never zeros)."""
-    codes = np.zeros(CHUNK, np.uint8)
-    rstart = np.full(R, CHUNK, np.int32)
-    rlen = np.zeros(R, np.int32)
+    codes = np.zeros(chunk, np.uint8)
+    rstart = np.full(nreads, chunk, np.int32)
+    rlen = np.zeros(nreads, np.int32)
     rng = rng or np.random.default_rng(0)
     off = 0
     for b, read in enumerate(reads):
         cap = slot_len(len(read)) if caps is None else caps[b]
-        assert off + cap <= CHUNK and b < R
+        assert off + cap <= chunk and b < nreads
         arr = np.frombuffer(read, np.uint8)
         codes[off : off + cap] = rng.integers(0, 4, cap)
         codes[off : off + len(arr)] = (arr >> 1) & 3
@@ -512,6 +512,293 @@ def splice_stress_case(seed, ew, chunk=1 << 20, R=64, full=False):
         cap_dense[1] = True
     return (codes, rstart, rlen, s_pos, n_sites,
             (succ, s_cap, rec_p, rec_c, rec_s, rec_e), cap_dense)
+
+
+# ---------------------------------------------------------------------------
+# Adversarial inputs of K6 and K7 (numpy, from a seed): the CUDA tests hold
+# the kernels against their plain versions on them, and chip_smoke.py times
+# K6 on a long-walk chunk built the same way.
+# ---------------------------------------------------------------------------
+
+class BranchFree:
+    """Genome pieces on which every de Bruijn walk is unique: each base is
+    drawn so that the new k-mer (and its reverse complement) is new, gives
+    no solid k-mer a second successor, and has no solid successor yet.
+    ``solid`` holds both orientations of every k-mer drawn, and of pieces
+    given up, so it only ever over-approximates the solid set."""
+
+    def __init__(self, rng, k=K):
+        self.rng, self.k = rng, k
+        self.mask, self.top = (1 << 2 * k) - 1, 2 * (k - 1)
+        self.solid = set()
+        self.pieces = []
+
+    def _fwd(self, x, b):
+        return ((x << 2) & self.mask) | b
+
+    def _rc_fwd(self, rx, b):
+        return (rx >> 2) | ((b ^ 2) << self.top)
+
+    def _fits(self, x, rx, prev, rprev, succ_ok=(), rpred_ok=()):
+        s = self.solid
+        if x in s:
+            return False
+        for a in range(4):
+            hi = a << self.top
+            if (hi | (x >> 2)) in s and (hi | (x >> 2)) != prev:
+                return False          # a solid k-mer would branch to x
+            if self._fwd(x, a) in s and self._fwd(x, a) not in succ_ok:
+                return False          # x would start with a successor
+            if (hi | (rx >> 2)) in s and (hi | (rx >> 2)) not in rpred_ok:
+                return False
+            if self._fwd(rx, a) in s and self._fwd(rx, a) != rprev:
+                return False
+        return True
+
+    def _add(self, x, rx):
+        self.solid.add(x)
+        self.solid.add(rx)
+
+    def line(self, n):
+        """n codes drawn base by base; None if a base had no choice."""
+        k, rng = self.k, self.rng
+        codes = [int(c) for c in rng.integers(0, 4, k - 1)]
+        x = rx = 0
+        for c in codes:
+            x, rx = self._fwd(x, c), self._rc_fwd(rx, c)
+        prev = rprev = None
+        while len(codes) < n:
+            for b in rng.permutation(4):
+                b = int(b)
+                nx, nrx = self._fwd(x, b), self._rc_fwd(rx, b)
+                if self._fits(nx, nrx, prev, rprev):
+                    break
+            else:
+                return None
+            self._add(nx, nrx)
+            codes.append(b)
+            x, rx, prev, rprev = nx, nrx, nx, nrx
+        return np.array(codes, np.uint8)
+
+    def piece(self, n):
+        """A linear piece of n codes."""
+        while True:
+            c = self.line(n)
+            if c is not None:
+                self.pieces.append(c)
+                return c
+
+    def cycle(self, period):
+        """A tandem repeat unit U of ``period`` codes whose cyclic k-mers
+        are all solid: the piece is U + U[:k-1], and a walk that enters it
+        revisits its first k-mer ``period`` steps later."""
+        k = self.k
+        while True:
+            u = self.line(period)
+            if u is None:
+                continue
+            x = rx = 0
+            for c in u[period - k:]:
+                x, rx = self._fwd(x, int(c)), self._rc_fwd(rx, int(c))
+            first = rfirst = 0
+            for c in u[:k]:
+                first = self._fwd(first, int(c))
+                rfirst = self._rc_fwd(rfirst, int(c))
+            ok, new = True, []
+            for t in range(k - 1):   # the k-mers across the seam
+                nx, nrx = self._fwd(x, int(u[t])), self._rc_fwd(rx, int(u[t]))
+                last = t == k - 2
+                if not self._fits(nx, nrx, x, rx,
+                                  succ_ok=(first,) if last else (),
+                                  rpred_ok=(rfirst,) if last else ()):
+                    ok = False
+                    break
+                self._add(nx, nrx)
+                new.append(nx)
+                x, rx = nx, nrx
+            if ok:
+                piece = np.concatenate([u, u[:k - 1]])
+                self.pieces.append(piece)
+                return u
+
+    def genome(self):
+        """The pieces as the byte sequences of the solid set."""
+        return [BASES[p].tobytes() for p in self.pieces]
+
+
+def _stress_chunk(reads, wide_slots, rng, chunk, nreads):
+    """Pack reads (code arrays) into a chunk, as many as fit."""
+    reads = [BASES[r].tobytes() for r in reads]
+    caps, used = [], 0
+    for r in reads[:nreads]:
+        cap = slot_len(len(r), wide_slots)
+        if used + cap > chunk:
+            break
+        caps.append(cap)
+        used += cap
+    return pack(reads[:len(caps)], caps, rng, chunk, nreads)
+
+
+def walk_stress_case(seed, walk_max=248, chunk=CHUNK, nreads=R,
+                     wide_slots=False, deletions=(100, 400), long_period=None,
+                     flanks=(40, 200)):
+    """K6's inputs at one walk profile (or several: ``walk_max`` may be a
+    tuple): (genome pieces, codes, rstart, rlen).  A branch-free genome (every walk unique) and reads of these
+    kinds, first one of each boundary case, then drawn in turn:
+    - a deletion of D bases: the graph walk accepts after D + k - 1 steps;
+      D = walk_max - k + {0, 1, 2} reaches walk_max (cap over accept) or
+      passes it (Brent, then CAP), the others from ``deletions``;
+    - a stretch of L random bases in place of L genome bases: err_len =
+      L + k - 1 (the V scan), gap-size fills L - 1 steps (L = walk_max
+      + {0, 1, 2} at the cap, others 33-300: error stretches over 32);
+    - a read that ends inside such a stretch near the genome's end (the V
+      scan reaches the read end), and a substitution (err_len == k:
+      gap-size's One attempt);
+    - sixteen 3-base deletions 18 bases apart: each graph repair nests in
+      the last one's dirty window, and the site passes SLOTS records;
+    - a chimera whose left part ends inside a tandem repeat of period P:
+      its walk revisits its first k-mer at step P, for P = 31, 32, 33,
+      walk_max - 1, walk_max, walk_max + 1 (Brent past walk_max) and
+      ``long_period``.
+    The bases around each error, before and after, are ``flanks`` long."""
+    rng = np.random.default_rng(seed)
+    bf = BranchFree(rng)
+    k = K
+    wms = (walk_max,) if isinstance(walk_max, int) else tuple(walk_max)
+    dmax = max(deletions[1], max(wms) - k + 3)
+    g = bf.piece(dmax + 2 * flanks[1] + 800)
+    periods = [31, 32, 33] + [w + d for w in wms for d in (-1, 0, 1)]
+    periods += [long_period] if long_period else []
+    units = {p: bf.cycle(p) for p in periods}
+    plan = ([("del", w - k + d) for w in wms for d in (0, 1, 2)]
+            + [("fill", w + d) for w in wms for d in (0, 1, 2)]
+            + [("cyc", p) for p in periods] + [("end", 40), ("sub", 0),
+                                               ("nest", 18)])
+    n = 0
+    while len(plan) < nreads:
+        kind = ("del", "fill", "cyc", "end", "sub", "cyc")[n % 6]
+        plan.append((kind, int(rng.integers(*deletions)) if kind == "del"
+                     else int(rng.integers(33, 300)) if kind in ("fill",
+                                                                 "end")
+                     else periods[int(rng.integers(len(periods)))]))
+        n += 1
+    reads = []
+    for kind, x in plan[:nreads]:
+        f1, f2 = (int(v) for v in rng.integers(*flanks, 2))
+        if kind == "del":
+            p = int(rng.integers(f1, len(g) - x - f2))
+            r = np.concatenate([g[p - f1:p], g[p + x:p + x + f2]])
+        elif kind == "fill":
+            p = int(rng.integers(f1, len(g) - x - f2))
+            junk = rng.integers(0, 4, x).astype(np.uint8)
+            r = np.concatenate([g[p - f1:p], junk, g[p + x:p + x + f2]])
+        elif kind == "end":      # the graph walk runs off the genome soon
+            p = len(g) - int(rng.integers(60, 200))
+            f1 = min(f1, p)
+            r = np.concatenate([g[p - f1:p],
+                                rng.integers(0, 4, x).astype(np.uint8)])
+        elif kind == "nest":     # 3-base deletions x apart, nested
+            p = int(rng.integers(f1, len(g) - 16 * (x + 3) - f2))
+            r = g[p - f1:p + 16 * (x + 3) + f2].copy()
+            for q in range(f1 + 15 * x, f1 - 1, -x):
+                r = np.delete(r, [q, q + 1, q + 2])
+        elif kind == "sub":
+            p = int(rng.integers(f1, len(g) - f2))
+            r = g[p - f1:p + f2].copy()
+            r[f1] ^= int(rng.integers(1, 4))
+        else:                    # chimera into a tandem repeat of period x
+            rep = np.tile(units[x], (f1 + x) // x + 2)
+            q = int(rng.integers(f1, f1 + x))
+            y = int(rng.integers(0, len(g) - f2))
+            r = np.concatenate([rep[q - f1 + 1:q + 1], g[y:y + f2]])
+        reads.append(r)
+    return (bf.genome(),
+            *_stress_chunk(reads, wide_slots, rng, chunk, nreads))
+
+
+def greedy_stress_case(seed, chunk=CHUNK, nreads=R):
+    """K7's inputs: (genome pieces, codes, rstart, rlen).  Reads of a
+    branch-free genome (walks run ms steps) carrying an error cluster
+    every 40-60 bases: up to 11 substitutions, deletions and insertions
+    of 1-5 bases within 8 bases, so that every step it = 0..ms-1 decides
+    somewhere (and DP cells tie between Match, Ins and Del); one read in
+    five runs up to the genome's last base (the walk fails at step 0)
+    and ends 1-12 bases after its last cluster (rem < it: the read ends
+    inside the walk or its validation); one in five is of a repeat-rich
+    genome (walks branch and revisit); one in seven starts with twelve
+    2-base deletions 11 bases apart, nested repairs that pass SLOTS
+    records."""
+    rng = np.random.default_rng(seed)
+    bf = BranchFree(rng)
+    clean = bf.piece(4000)
+    rich = np.frombuffer(repeat_rich_genome(rng), np.uint8)
+    rich = ((rich >> 1) & 3).astype(np.uint8)
+    pieces = bf.genome() + [BASES[rich].tobytes()]
+
+    def cluster(r, p):
+        for _ in range(int(rng.integers(1, 12))):
+            q = min(p + int(rng.integers(0, 8)), len(r) - 1)
+            n = int(rng.integers(1, 6))
+            op = int(rng.integers(3))
+            if op == 0:
+                r[q:q + n] ^= rng.integers(1, 4, len(r[q:q + n])).astype(
+                    np.uint8)
+            elif op == 1:
+                r = np.delete(r, range(q, min(q + n, len(r) - 1)))
+            else:
+                r = np.insert(r, q, rng.integers(0, 4, n).astype(np.uint8))
+        return r
+
+    reads, b = [], 0
+    while len(reads) < nreads:
+        g = rich if b % 5 == 4 else clean
+        ln = int(rng.integers(300, 600))
+        lo = len(g) - ln if b % 5 == 3 else int(rng.integers(0, len(g) - ln))
+        r = g[lo:lo + ln].copy()
+        p = int(rng.integers(K + 2, 30))
+        if b % 7 == 6:          # 2-base deletions 11 apart: nested repairs
+            for q in range(p + 11 * 11, p - 1, -11):
+                r = np.delete(r, [q, q + 1])
+            p += 160
+        while p < len(r) - 40:
+            r = cluster(r, p)
+            p += int(rng.integers(40, 60))
+        if b % 5 == 3:           # errors in the genome's last bases
+            r = cluster(r, len(r) - int(rng.integers(2, 12)))
+            r = r[:len(r) - int(rng.integers(0, 3))]
+        elif b % 5 == 2:         # the read ends inside the walk
+            r = cluster(r, len(r) - 30)[:len(r) - 30 + int(rng.integers(
+                3, 13))]
+        reads.append(r)
+        b += 1
+    return (pieces, *_stress_chunk(reads, False, rng, chunk, nreads))
+
+
+def record_attempts(module, names):
+    """A context that wraps the plain functions ``names`` of ``module`` so
+    that each call's arguments and results are appended to a list: the
+    CPU tests read what the plain walk and greedy attempts did."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        calls = {n: [] for n in names}
+        saved = {n: getattr(module, n) for n in names}
+
+        def wrap(n, fn):
+            def rec(*args):
+                out = fn(*args)
+                calls[n].append((args, out))
+                return out
+            return rec
+        try:
+            for n in names:
+                setattr(module, n, wrap(n, saved[n]))
+            yield calls
+        finally:
+            for n, fn in saved.items():
+                setattr(module, n, fn)
+    return ctx()
 
 
 def load_golden(path=GOLDEN):
