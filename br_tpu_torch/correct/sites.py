@@ -182,9 +182,10 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     the lanes whose gate passed (flat positions ii, registers rg, gated
     alternatives corr, read ends lf) and returns an ``Attempt``.
     ``trace``, when given, is called after every round with the round's
-    site ids, its gate mask, the probes each lane's dirty simulation made
-    and the lanes that then search for their successor; it changes
-    nothing (chip_smoke.py counts the chains' dependent rounds with it)."""
+    site ids, its gate mask, the probes each lane's dirty simulation made,
+    the lanes that then search for their successor and the rank that
+    search finds; it changes nothing (chip_smoke.py counts the chains'
+    dependent rounds with it)."""
     CHUNK, NS, dev = codes.shape[0], s_pos.shape[0], codes.device
     probe = dc.make_solid_probe_any(table, k)
     succ = torch.full((NS,), NS, dtype=torch.int32, device=dev)
@@ -272,7 +273,7 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
         succ[act[has]] = q[has].int()
         if trace is not None:
             trace(act, gate, probes,
-                  (state == DONE_PURE) & ~bad & (si < CHUNK))
+                  (state == DONE_PURE) & ~bad & (si < CHUNK), q)
 
         pend = (state == PENDING) & ~bad
         nxt = act[pend]

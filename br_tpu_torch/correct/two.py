@@ -52,9 +52,10 @@ def two_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
                            rlen, k, c)
 
 
-def two_attempt_plain(probe, code_at, k: int, c: int, ii, rg, corr, lf):
-    """The 13 scenarios over lanes (make_two_attempt32, engine3.py:359)."""
-    rem = lf - ii
+def two_scenarios(probe, code_at, k: int, ii, corr, rem):
+    """Each scenario's apply step, in exist/two.rs's order: (gate,
+    candidate register km2) over lanes (make_two_attempt32, engine3.py:
+    383-411)."""
 
     def absorb(km, idx):
         return dc.add_nuc(km, code_at(idx), k)
@@ -76,7 +77,7 @@ def two_attempt_plain(probe, code_at, k: int, c: int, ii, rg, corr, lf):
     n2, scs = alt_last(probe, t2)
     scd_ok, scd = nxt(t1)
     dcd_ok, dcd = nxt(absorb(corr, ii))
-    scen = [
+    return [
         (true, corr),                                       # II
         (true, corr),                                       # IS
         ((rem >= 2) & ~t1v & (n == 1), ss),                 # SS
@@ -91,30 +92,55 @@ def two_attempt_plain(probe, code_at, k: int, c: int, ii, rg, corr, lf):
         (rem >= 4, sci),                                    # DCI
         ((rem >= 2) & dcd_ok, dcd),                         # DCD
     ]
-    keeps, mores, emits, new_kmers = [], [], [], []
-    for s, (a_ok, km2) in enumerate(scen):
-        off_a, off_c, ne = APPLY_OFF[s], CORRECT_OFF[s], EMIT_N[s]
+
+
+def emitted(s: int, corr, km2):
+    """The bases scenario s emits, first to last: the last EMIT_N[s]
+    bases of corr or of its candidate."""
+    src, ne = (corr if EMIT_CORR[s] else km2), EMIT_N[s]
+    return [(src >> (2 * (ne - 1 - t))) & 3 for t in range(ne)]
+
+
+def two_scores(probe, code_at, k: int, c: int, ii, corr, lf):
+    """(keep, more, candidates): per scenario over lanes, a perfect score
+    (its gate, its candidate and the c k-mers after it from APPLY_OFF
+    solid, within the read) and its one_more (corr >> 2, the emitted
+    bases and c+1 codes from CORRECT_OFF solid, within the read); keep
+    and more are (13, lanes)."""
+    rem = lf - ii
+    keeps, mores, km2s = [], [], []
+    for s, (a_ok, km2) in enumerate(two_scenarios(probe, code_at, k, ii,
+                                                  corr, rem)):
+        off_a, off_c = APPLY_OFF[s], CORRECT_OFF[s]
         km = km2
         score = a_ok & probe(km2) & (off_a + c <= rem)
         for t in range(c):
-            km = absorb(km, ii + off_a + t)
+            km = dc.add_nuc(km, code_at(ii + off_a + t), k)
             score = score & probe(km)
-        keeps.append(score)
-        src = corr if EMIT_CORR[s] else km2
-        bases = [(src >> (2 * (ne - 1 - t))) & 3 for t in range(ne)]
-        ew = torch.zeros_like(rg)
-        nk, om = rg >> 2, corr >> 2
-        for t, b in enumerate(bases):
-            ew = ew | (b << (2 * t))
-            nk = dc.add_nuc(nk, b, k)
+        om = corr >> 2
+        for b in emitted(s, corr, km2):
             om = dc.add_nuc(om, b, k)
         for t in range(c + 1):
-            om = absorb(om, ii + off_c + t)
+            om = dc.add_nuc(om, code_at(ii + off_c + t), k)
+        keeps.append(score)
         mores.append((rem > c + off_c + 1) & probe(om))
+        km2s.append(km2)
+    return torch.stack(keeps), torch.stack(mores), km2s
+
+
+def two_attempt_plain(probe, code_at, k: int, c: int, ii, rg, corr, lf):
+    """The 13 scenarios over lanes (make_two_attempt32, engine3.py:359)."""
+    keep, more, km2s = two_scores(probe, code_at, k, c, ii, corr, lf)
+    emits, new_kmers = [], []
+    for s, km2 in enumerate(km2s):
+        ew = torch.zeros_like(rg)
+        nk = rg >> 2
+        for t, b in enumerate(emitted(s, corr, km2)):
+            ew = ew | (b << (2 * t))
+            nk = dc.add_nuc(nk, b, k)
         emits.append(ew)
         new_kmers.append(nk)
-    keep = torch.stack(keeps)
-    keep2 = keep & torch.stack(mores)
+    keep2 = keep & more
     nk1, nk2 = keep.sum(0), keep2.sum(0)
     ok = (nk1 == 1) | ((nk1 > 1) & (nk2 == 1))
     sel = torch.where(nk1 == 1, keep, keep2).long()

@@ -59,17 +59,6 @@ __device__ __forceinline__ int br_slot_of(const int32_t* a, int n, int x) {
   return lo - 1;
 }
 
-// first i in [0, n) with a[i] >= x, or n (a sorted ascending)
-__device__ __forceinline__ int br_lower_bound(const int32_t* a, int n,
-                                              int x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 #define BR_FULL 0xffffffffu
 
 // first i in [0, n) with a[i] >= x, or n: a 32-way search by one warp

@@ -267,10 +267,7 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
 
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     greedy_sites_kernel(BrSites a, int ms, int nb) {
-  __shared__ int32_t sh_start[BR_MAX_R];
-  __shared__ int32_t sh_len[BR_MAX_R];
   __shared__ uint16_t sh_tb[BR_WARP_SITES][TB_WORDS];
-  br_stage_slots(a, sh_start, sh_len);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
@@ -279,7 +276,7 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
                      int32_t* erow) {
     return greedy_attempt(a, ms, nb, lane, tb, i, reg, corr, lenf, erow);
   };
-  br_site_chain_warp(a, sid, lane, sh_start, sh_len, attempt);
+  br_site_chain_warp(a, sid, lane, attempt);
 }
 
 extern "C" int br_greedy_sites(
@@ -291,7 +288,8 @@ extern "C" int br_greedy_sites(
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
-  greedy_sites_kernel<<<br_warp_site_blocks(NS), BR_SITE_THREADS, 0,
-                        (cudaStream_t)stream>>>(a, ms, nb);
+  greedy_sites_kernel<<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                        BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(a, ms,
+                                                                   nb);
   return (int)cudaGetLastError();
 }

@@ -8,36 +8,36 @@
 // one_more rules of exist/mod.rs) and dirty_sim (:1526, the scan machine
 // for k steps after a repair, which finds nested sites).
 //
-// One thread per site id sid < NS runs the site chain of
-// sites_common.cuh: gate (4 probes), One attempt (1 + 3*(c+1) probes over
-// the code window i .. i+c+2, clipped to the chunk like the JAX window;
-// the rem gating of engine3.py:333-337 is what keeps bases past the read
-// end out of the result), record write into the site's slot (past SLOTS
-// records the site caps with CAP_OVERFLOW), dirty simulation of at most k
-// steps, then a nested attempt, the successor or the read end.  The JAX
+// One warp per site id sid < NS (BR_PAIR_SITES a block) runs the warp
+// chain of sites_common.cuh: gate (4 probes on lanes 0-3), One attempt
+// (br_one_attempt_warp: 1 + 3*(c+1) independent probes spread over the
+// lanes, their k-mers rolled from the code window i .. i+c+2 held in
+// every lane, clipped to the chunk like the JAX window; the rem gating of
+// engine3.py:333-337 is what keeps bases past the read end out of the
+// result), record write into the site's slot (past SLOTS records the
+// site caps with CAP_OVERFLOW), dirty simulation of at most k steps at
+// once, then a nested attempt, the successor or the read end.  The JAX
 // queue's generation capacities (NQA pending slots, MAXB rounds ->
-// CAP_ROUNDS, :1362-1372) have no counterpart: each thread finishes its
+// CAP_ROUNDS, :1362-1372) have no counterpart: each warp finishes its
 // own chain.
 //
-// Bound on the H100: the probes.  ~24 bitfield reads per attempt at c=5
-// are dependent loads from L2 (4 MiB table at k=13), so a thread is
-// latency-bound; the design keeps everything in registers, gives every
-// site its own thread (tens of thousands per chunk) to hide latency, and
-// writes each output once.
+// Bound on the H100: the probes, dependent loads from L2 (4 MiB table at
+// k=13).  A chain step is three L2 round trips (gate, attempt, dirty
+// window) whatever c is, in place of one a probe in a thread; NS warps
+// (16,384 blocks of 2 on a 2^20 chunk, 4,096 on a 2^18 one) fill every
+// SM, and a block frees its slot when the slower of its two chains ends.
 #include "sites_common.cuh"
 
-__global__ void __launch_bounds__(BR_SITE_THREADS)
+__global__ void __launch_bounds__(32 * BR_PAIR_SITES)
     one_sites_kernel(BrSites a, int c) {
-  __shared__ int32_t sh_start[BR_MAX_R];
-  __shared__ int32_t sh_len[BR_MAX_R];
-  br_stage_slots(a, sh_start, sh_len);
-  const int sid = blockIdx.x * BR_SITE_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sid = blockIdx.x * BR_PAIR_SITES + warp;
   if (sid >= a.NS) return;
   auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
                      int32_t* erow) {
-    return br_one_attempt(a, c, i, corr, lenf, erow);
+    return br_one_attempt_warp(a, c, i, corr, lenf, erow, lane);
   };
-  br_site_chain(a, sid, sh_start, sh_len, attempt);
+  br_site_chain_warp(a, sid, lane, attempt);
 }
 
 extern "C" int br_one_sites(
@@ -49,7 +49,7 @@ extern "C" int br_one_sites(
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
-  one_sites_kernel<<<br_site_blocks(NS), BR_SITE_THREADS, 0,
-                     (cudaStream_t)stream>>>(a, c);
+  one_sites_kernel<<<br_warp_site_blocks(NS, BR_PAIR_SITES),
+                     32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(a, c);
   return (int)cudaGetLastError();
 }

@@ -1,31 +1,32 @@
 // Shared device code of the site kernels: K2 one_sites, K5 two_sites,
 // K6 walk_sites and K7 greedy_sites.
 //
-// Two shapes of the site chain (the site-block queue of
-// br_tpu/correct/engine3.py:1592-1708, with the JAX queue's generation
-// capacities NQA / MAXB -> CAP_ROUNDS having no counterpart):
-//
-// br_site_chain (K2, K5): one thread per listed site id sid < NS, which
-// runs its site's whole chain of nested attempts to the end.
-//
-// br_site_chain_warp (K6, K7): one warp per site, the same chain with the
-// same state held alike in every lane, and the lanes sharing each step's
-// independent loads: the gate's 4 probes on lanes 0-3 and a ballot; the
-// dirty simulation's up to k probes at once (lane m rolls the register
-// m+1 steps by a shuffle scan of the codes, a ballot finds the first
-// event); the successor by a 32-way warp search.  A warp's chain has as
-// many dependent L2 round trips as it has attempts and dirty windows, in
-// place of one per probe, and NS warps keep every SM's schedulers fed.
+// The site chain (the site-block queue of br_tpu/correct/engine3.py:
+// 1592-1708, with the JAX queue's generation capacities NQA / MAXB ->
+// CAP_ROUNDS having no counterpart), br_site_chain_warp: one warp per
+// listed site id sid < NS runs its site's whole chain of nested attempts
+// to the end, with the same state held alike in every lane, and the lanes
+// sharing each step's independent loads: the gate's 4 probes on lanes 0-3
+// and a ballot; the attempt's probes (the kernel's own functor, which
+// spreads them over the lanes and reads its codes from a window held in
+// every lane, br_window_warp); the dirty simulation's up to k probes at
+// once (lane m rolls the register m+1 steps by a shuffle scan of the
+// codes, a ballot finds the first event); the successor among the next
+// 32 listed sites in one load (a 32-way warp search past them).  A
+// warp's chain has as many dependent L2 round trips as it has gates,
+// attempt rounds and dirty windows, in place of one per probe, and NS
+// warps (2 a block for K2 and K5, 8 for K6 and K7, whose warps hold
+// shared memory) keep every SM's schedulers fed.
 //
 // A chain step is: the exactly-one-alternative gate (_alt_info32_arr,
-// :966); the strategy's attempt, a functor the kernel passes in; a repair
-// record when it applies (at most SLOTS per site, beyond that
-// CAP_OVERFLOW); an attempt that hits an engineered bound caps the site
-// with CAP_ATTEMPT; then the dirty simulation (dirty_sim, :1526-1564) for
-// k steps past the last repair, which either finds a nested site (attempt
-// again there), reaches the read end, or hands over to the successor:
-// the first listed site at or after the stop position inside the read (a
-// lower bound over s_pos, in place of the JAX nt table).
+// :966); the strategy's attempt; a repair record when it applies (at most
+// SLOTS per site, beyond that CAP_OVERFLOW); an attempt that hits an
+// engineered bound caps the site with CAP_ATTEMPT; then the dirty
+// simulation (dirty_sim, :1526-1564) for k steps past the last repair,
+// which either finds a nested site (attempt again there), reaches the
+// read end, or hands over to the successor: the first listed site at or
+// after the stop position inside the read (a lower bound over s_pos, in
+// place of the JAX nt table).
 //
 // Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
 // count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
@@ -40,8 +41,12 @@
 #include "common.cuh"
 
 #define BR_SITE_THREADS 256
-// sites per block of a warp-per-site kernel
+// sites per block of a warp-per-site kernel with shared memory per warp
+// (K6, K7)
 #define BR_WARP_SITES (BR_SITE_THREADS / 32)
+// sites per block of K2 and K5, which hold no shared memory: a block
+// frees its SM slot as soon as the slower of its two chains ends
+#define BR_PAIR_SITES 2
 #define BR_BPW 16
 #define BR_DONE_PURE 0
 #define BR_DONE_END 1
@@ -55,37 +60,6 @@ __device__ __forceinline__ uint32_t code_at(const uint8_t* codes, int i,
                                             int CHUNK) {
   i = i < 0 ? 0 : (i < CHUNK ? i : CHUNK - 1);
   return codes[i] & 3u;
-}
-
-// Alternatives for the last base of km (mod.rs:114-116): returns how
-// many of base^a (a = 0..3) are solid; *repl = base ^ (sum of those a),
-// the one alternative when the count is 1.
-__device__ __forceinline__ int br_alt_last(const uint32_t* __restrict__ table,
-                                           uint32_t km, int k,
-                                           uint32_t* repl) {
-  const uint32_t base = (km >> 2) << 2;
-  int n = 0;
-  uint32_t alt = 0;
-  for (uint32_t a = 0; a < 4; ++a) {
-    if (br_probe(table, base ^ a, k)) { ++n; alt += a; }
-  }
-  *repl = base ^ alt;
-  return n;
-}
-
-// Successors of km (mod.rs:118-128): returns how many of add(km, a) are
-// solid; *code = the sum of those a, the one successor's base when the
-// count is 1.
-__device__ __forceinline__ int br_alt_next(const uint32_t* __restrict__ table,
-                                           uint32_t km, int k, uint32_t kmask,
-                                           uint32_t* code) {
-  int n = 0;
-  uint32_t alt = 0;
-  for (uint32_t a = 0; a < 4; ++a) {
-    if (br_probe(table, br_add(km, a, kmask), k)) { ++n; alt += a; }
-  }
-  *code = alt;
-  return n;
 }
 
 // Everything a site kernel reads and writes.
@@ -115,133 +89,14 @@ struct BrAttempt {
   int cnt;            // emitted bases
 };
 
-// The One attempt (exist/one.rs; make_one_attempt32_arr, engine3.py:300):
-// scenarios D (offset 0), S (1), I (2), each scored over c+1 k-mers of
-// the code window i+off .. i+off+c; unique perfect score, or a unique
-// one_more among several.  corr is the gated alternative k-mer.
-__device__ __forceinline__ BrAttempt br_one_attempt(
-    const BrSites& a, int c, int i, uint32_t corr, int lenf,
-    int32_t* erow) {
-  const uint32_t kmask = br_kmask(a.k);
-  const int rem = lenf - i;
-  const bool corr_ok = br_probe(a.table, corr, a.k);
-  bool keep[3], more[3];
-  for (int off = 0; off < 3; ++off) {
-    uint32_t km = corr;
-    bool all = true, last = false;
-    for (int s = 0; s <= c; ++s) {
-      km = br_add(km, code_at(a.codes, i + off + s, a.CHUNK), kmask);
-      bool v = br_probe(a.table, km, a.k);
-      if (s < c) all = all && v; else last = v;
-    }
-    keep[off] = (off + c <= rem) && corr_ok && all;
-    more[off] = (rem > c + off + 1) && last;
-  }
-  const int nk = keep[0] + keep[1] + keep[2];
-  bool keep2[3];
-  for (int off = 0; off < 3; ++off) keep2[off] = keep[off] && more[off];
-  const int nk2 = keep2[0] + keep2[1] + keep2[2];
-  BrAttempt r;
-  r.ok = (nk == 1) || (nk > 1 && nk2 == 1);
-  const bool* sel = nk == 1 ? keep : keep2;
-  r.consumed = sel[1] ? 1 : (sel[2] ? 2 : 0);
-  r.cap = false;
-  r.new_kmer = corr;
-  r.cnt = 1;
-  if (r.ok && erow) erow[0] = (int32_t)(corr & 3u);
-  return r;
-}
-
-// Stage the slot table in shared memory (every thread of the block).
-__device__ __forceinline__ void br_stage_slots(const BrSites& a,
-                                               int32_t* sh_start,
-                                               int32_t* sh_len) {
-  for (int r = threadIdx.x; r < a.R; r += blockDim.x) {
-    sh_start[r] = a.rstart[r];
-    sh_len[r] = a.rlen[r];
-  }
-  __syncthreads();
-}
-
-// The whole chain of site sid.  attempt(i, reg, corr, lenf, erow) runs
-// the strategy at flat position i with register reg, whose gated
-// alternative is corr, in a read ending at lenf; erow is the record row
-// of the next record, or null past SLOTS.
-template <class Attempt>
-__device__ void br_site_chain(const BrSites& a, int sid,
-                              const int32_t* sh_start, const int32_t* sh_len,
-                              Attempt& attempt) {
-  const int n_eff = min(a.n_sites[0], a.NS);
-  const int rb = sid * BR_SLOTS;
-  const int k = a.k;
-  int nrec = 0, cap = 0, nxt = a.NS;
-
-  if (sid < n_eff) {
-    const uint32_t kmask = br_kmask(k);
-    const int pos = a.s_pos[sid];
-    const int rid = br_slot_of(sh_start, a.R, pos);
-    const int lenf = sh_start[rid] + sh_len[rid];
-    int i = pos, t = k;
-    uint32_t reg = (uint32_t)a.kmers[pos];
-    while (true) {
-      uint32_t corr;
-      BrAttempt r = {false, false, 0u, 0, 0};
-      if (br_alt_last(a.table, reg, k, &corr) == 1) {
-        int32_t* erow = nrec < BR_SLOTS
-                            ? a.rec_e + (size_t)(rb + nrec) * a.EW
-                            : nullptr;
-        r = attempt(i, reg, corr, lenf, erow);
-        if (r.cap) { cap = BR_CAP_ATTEMPT; break; }
-      }
-      const bool applied = r.ok;
-      if (applied) {
-        if (nrec >= BR_SLOTS) { cap = BR_CAP_OVERFLOW; break; }
-        a.rec_p[rb + nrec] = i;
-        a.rec_c[rb + nrec] = r.cnt;
-        a.rec_s[rb + nrec] = r.consumed;
-        ++nrec;
-      }
-      // dirty simulation: the scan machine until k steps past the last
-      // applied repair
-      int si = applied ? i + r.consumed : i + 1;
-      uint32_t sreg = applied ? r.new_kmer : reg;
-      int st = applied ? 0 : t;
-      bool prev = applied;
-      int state = BR_DONE_PURE;
-      for (int m = 0; m < k; ++m) {
-        if (st >= k) { state = BR_DONE_PURE; break; }
-        if (si >= lenf) { state = BR_DONE_END; break; }
-        sreg = br_add(sreg, code_at(a.codes, si, a.CHUNK), kmask);
-        bool v = br_probe(a.table, sreg, k);
-        if (!v && prev) { state = BR_PENDING; break; }
-        prev = v;
-        ++si;
-        ++st;
-      }
-      if (state == BR_PENDING) {  // nested site: attempt again there
-        i = si;
-        reg = sreg;
-        t = st + 1;
-        continue;
-      }
-      if (state == BR_DONE_PURE && si < a.CHUNK) {
-        int q = br_lower_bound(a.s_pos, n_eff, si);
-        if (q < n_eff && a.s_pos[q] < lenf) nxt = q;
-      }
-      break;
-    }
-  }
-  a.succ[sid] = nxt;
-  a.s_cap[sid] = cap;
-  for (int s = nrec; s < BR_SLOTS; ++s) a.rec_p[rb + s] = BR_BIG;
-}
-
 // ---------------------------------------------------------------------
 // The warp-per-site chain.  Every lane of the warp calls these with the
 // same arguments and gets the same results; lane is threadIdx.x & 31.
 // ---------------------------------------------------------------------
 
-// br_alt_last with lane a < 4 probing base ^ a.
+// Alternatives for the last base of km (mod.rs:114-116), lane a < 4
+// probing base ^ a: returns how many of base ^ a are solid; *repl = base
+// ^ (sum of those a), the one alternative when the count is 1.
 __device__ __forceinline__ int br_alt_last_warp(
     const uint32_t* __restrict__ table, uint32_t km, int k, int lane,
     uint32_t* repl) {
@@ -252,7 +107,9 @@ __device__ __forceinline__ int br_alt_last_warp(
   return __popc(m);
 }
 
-// br_alt_next with lane a < 4 probing add(km, a).
+// Successors of km (mod.rs:118-128), lane a < 4 probing add(km, a):
+// returns how many are solid; *code = the sum of those a, the one
+// successor's base when the count is 1.
 __device__ __forceinline__ int br_alt_next_warp(
     const uint32_t* __restrict__ table, uint32_t km, int k, uint32_t kmask,
     int lane, uint32_t* code) {
@@ -279,24 +136,79 @@ __device__ __forceinline__ uint32_t br_roll_warp(const uint8_t* codes,
   return (hi | x) & kmask;
 }
 
-// The One attempt of br_one_attempt with its 3*(c+1) window probes spread
-// over the lanes (lane = off*(c+1) + s, in rounds of 32), the k-mers
-// rolled per lane from corr, and the scenario masks OR-reduced.
+// 32 codes of an attempt's window, at i+base .. i+base+31 (code_at, so
+// clipped into the chunk), held alike in every lane: bit j of lo / hi is
+// the low / high bit of the code at i+base+j, loaded one code a lane and
+// gathered by two ballots.  An attempt orders its probes so that a round
+// of 32 lanes needs codes within 29 positions (a probe's k-mer takes at
+// most its last k <= 15 codes), and loads the window again for a round
+// past it: any confirm count c works with the codes in registers.
+struct BrWindow {
+  uint32_t lo, hi;
+  int base;
+};
+
+__device__ __forceinline__ BrWindow br_window_warp(const uint8_t* codes,
+                                                   int CHUNK, int i,
+                                                   int base, int lane) {
+  const uint32_t x = code_at(codes, i + base + lane, CHUNK);
+  return {__ballot_sync(BR_FULL, x & 1u), __ballot_sync(BR_FULL, x >> 1),
+          base};
+}
+
+// The n (1..15) codes of the window ending at i+e, the first in the high
+// bits: a register's last n bases after it absorbed them (i+base <= i+e-n+1,
+// e < base+32).
+__device__ __forceinline__ uint32_t br_span(const BrWindow& w, int e,
+                                            int n) {
+  const int s = e - n + 1 - w.base;
+  const uint32_t m = (1u << n) - 1u;
+  const uint32_t l = __brev((w.lo >> s) & m) >> (32 - n);
+  const uint32_t h = __brev((w.hi >> s) & m) >> (32 - n);
+  // bits l and h of each code to the even and odd bits
+  uint32_t x = l | (h << 16);
+  x = (x & 0xFF0000FFu) | ((x & 0x00FF0000u) >> 8) | ((x & 0x0000FF00u) << 8);
+  x = (x & 0xF00FF00Fu) | ((x & 0x0F000F00u) >> 4) | ((x & 0x00F000F0u) << 4);
+  x = (x & 0xC3C3C3C3u) | ((x & 0x30303030u) >> 2) | ((x & 0x0C0C0C0Cu) << 2);
+  x = (x & 0x99999999u) | ((x & 0x44444444u) >> 1) | ((x & 0x22222222u) << 1);
+  return x;
+}
+
+// km after absorbing the m >= 1 codes of the window ending at i+e: the m
+// br_adds of a thread in one step, since only the last k codes remain.
+__device__ __forceinline__ uint32_t br_roll_window(const BrWindow& w,
+                                                   uint32_t km, int e,
+                                                   int m, int k,
+                                                   uint32_t kmask) {
+  const uint32_t hi = m < k ? km << (2 * m) : 0u;
+  return (hi | br_span(w, e, m < k ? m : k)) & kmask;
+}
+
+// The One attempt (exist/one.rs; make_one_attempt32_arr, engine3.py:300):
+// scenarios D (offset 0), S (1), I (2), each scored over c+1 k-mers of
+// the code window i+off .. i+off+c; a unique perfect score, or a unique
+// one_more among several.  corr is the gated alternative k-mer.  Its
+// 1 + 3*(c+1) probes are independent: lane idx = 3*s + off takes k-mer s
+// of scenario off (rounds of 32 past 32 probes, a round's codes within
+// s0-14 .. s0+13 for its first s0), and the scenario masks are
+// OR-reduced.
 __device__ __forceinline__ BrAttempt br_one_attempt_warp(
     const BrSites& a, int c, int i, uint32_t corr, int lenf,
     int32_t* erow, int lane) {
   const uint32_t kmask = br_kmask(a.k);
   const int rem = lenf - i;
   const bool corr_ok = br_probe(a.table, corr, a.k);
-  const int per = c + 1, tot = 3 * per;
+  const int tot = 3 * (c + 1);
   uint32_t failm = 0, lastm = 0;
-  for (int base = 0; base < tot; base += 32) {
-    const int idx = base + lane;
+  for (int r0 = 0; r0 < tot; r0 += 32) {
+    const int s0 = r0 / 3;
+    const BrWindow w = br_window_warp(a.codes, a.CHUNK, i,
+                                      s0 > 14 ? s0 - 14 : 0, lane);
+    const int idx = r0 + lane;
     if (idx < tot) {
-      const int off = idx / per, s = idx - off * per;
-      uint32_t km = corr;
-      for (int u = 0; u <= s; ++u)
-        km = br_add(km, code_at(a.codes, i + off + u, a.CHUNK), kmask);
+      const int s = idx / 3, off = idx - 3 * s;
+      const uint32_t km = br_roll_window(w, corr, off + s, s + 1, a.k,
+                                         kmask);
       const bool v = br_probe(a.table, km, a.k);
       if (s < c) {
         if (!v) failm |= 1u << off;
@@ -331,11 +243,13 @@ __device__ __forceinline__ BrAttempt br_one_attempt_warp(
 // the same sid).  attempt(i, reg, corr, lenf, erow) is called by every
 // lane and returns the same result in every lane; erow is the record row
 // of the next record, or null past SLOTS.  Lane 0 writes the records,
-// succ and s_cap; lanes nrec..SLOTS-1 the rec_p sentinels.
+// succ and s_cap; lanes nrec..SLOTS-1 the rec_p sentinels.  The site's
+// read is found by a 32-way warp search of rstart (two dependent loads
+// for 512 slots, no staging in shared memory).
 template <class Attempt>
-__device__ __forceinline__ void br_site_chain_warp(
-    const BrSites& a, int sid, int lane, const int32_t* sh_start,
-    const int32_t* sh_len, Attempt& attempt) {
+__device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
+                                                   int sid, int lane,
+                                                   Attempt& attempt) {
   const int n_eff = min(a.n_sites[0], a.NS);
   const int rb = sid * BR_SLOTS;
   const int k = a.k;
@@ -344,10 +258,11 @@ __device__ __forceinline__ void br_site_chain_warp(
   if (sid < n_eff) {
     const uint32_t kmask = br_kmask(k);
     const int pos = a.s_pos[sid];
-    const int rid = br_slot_of(sh_start, a.R, pos);
-    const int lenf = sh_start[rid] + sh_len[rid];
-    int i = pos, t = k;
     uint32_t reg = (uint32_t)a.kmers[pos];
+    // the last slot starting at or before pos
+    const int rid = br_warp_lower_bound(a.rstart, a.R, pos + 1, lane) - 1;
+    const int lenf = a.rstart[rid] + a.rlen[rid];
+    int i = pos, t = k;
     while (true) {
       uint32_t corr;
       BrAttempt r = {false, false, 0u, 0, 0};
@@ -368,7 +283,7 @@ __device__ __forceinline__ void br_site_chain_warp(
         }
         ++nrec;
       }
-      // dirty simulation: lane m takes step m of br_site_chain's loop
+      // dirty simulation: lane m takes step m of the scan machine
       // (register after m+1 codes, si0+m, st0+m); the first lane with an
       // event (st >= k, the read end, or !v && prev) decides
       const int si0 = applied ? i + r.consumed : i + 1;
@@ -395,8 +310,21 @@ __device__ __forceinline__ void br_site_chain_warp(
         continue;
       }
       if (state == BR_DONE_PURE && si < a.CHUNK) {
-        const int q = br_warp_lower_bound(a.s_pos, n_eff, si, lane);
-        if (q < n_eff && a.s_pos[q] < lenf) nxt = q;
+        // the successor, the first listed site at or after si (none
+        // before sid is: si >= pos): among the 32 from sid in one load,
+        // else by a warp search past them
+        const int sp = sid + lane < n_eff ? a.s_pos[sid + lane] : BR_BIG;
+        const uint32_t ge = __ballot_sync(BR_FULL, sp >= si);
+        int q, sq;
+        if (ge) {
+          q = sid + __ffs(ge) - 1;
+          sq = __shfl_sync(BR_FULL, sp, __ffs(ge) - 1);
+        } else {
+          q = sid + 32 + br_warp_lower_bound(a.s_pos + sid + 32,
+                                             n_eff - sid - 32, si, lane);
+          sq = q < n_eff ? a.s_pos[q] : BR_BIG;
+        }
+        if (q < n_eff && sq < lenf) nxt = q;
       }
       break;
     }
@@ -436,11 +364,7 @@ static inline BrSites br_sites_args(
   return a;
 }
 
-static inline int br_site_blocks(int NS) {
-  return (NS + BR_SITE_THREADS - 1) / BR_SITE_THREADS;
-}
-
-// blocks of a warp-per-site kernel: BR_WARP_SITES sites a block
-static inline int br_warp_site_blocks(int NS) {
-  return (NS + BR_WARP_SITES - 1) / BR_WARP_SITES;
+// blocks of a warp-per-site kernel with per_block sites a block
+static inline int br_warp_site_blocks(int NS, int per_block) {
+  return (NS + per_block - 1) / per_block;
 }

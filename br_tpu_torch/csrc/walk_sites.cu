@@ -222,10 +222,7 @@ __device__ __forceinline__ BrAttempt walk_attempt(
 
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     walk_sites_kernel(BrSites a, WalkCtx w, int mode, int c) {
-  __shared__ int32_t sh_start[BR_MAX_R];
-  __shared__ int32_t sh_len[BR_MAX_R];
   extern __shared__ uint32_t sh_hist[];  // BR_WARP_SITES x (walk_max+1)
-  br_stage_slots(a, sh_start, sh_len);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
@@ -235,7 +232,7 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
     return walk_attempt(a, w, mode, c, lane, hist, i, reg, corr, lenf,
                         erow);
   };
-  br_site_chain_warp(a, sid, lane, sh_start, sh_len, attempt);
+  br_site_chain_warp(a, sid, lane, attempt);
 }
 
 extern "C" int br_walk_sites(
@@ -252,7 +249,7 @@ extern "C" int br_walk_sites(
   w.walk_max = walk_max;
   const size_t smem = (size_t)BR_WARP_SITES * (walk_max + 1) * 4;
   // above 48 KB of dynamic shared memory a kernel has to ask for it
-  static size_t granted = 48 * 1024 - 2 * BR_MAX_R * 4;
+  static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
         walk_sites_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -260,7 +257,8 @@ extern "C" int br_walk_sites(
     if (e != cudaSuccess) return (int)e;
     granted = smem;
   }
-  walk_sites_kernel<<<br_warp_site_blocks(NS), BR_SITE_THREADS, smem,
-                      (cudaStream_t)stream>>>(a, w, mode, c);
+  walk_sites_kernel<<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                      BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
+      a, w, mode, c);
   return (int)cudaGetLastError();
 }

@@ -27,12 +27,11 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    it (the longest, and the one with the most visited sites); beside
    each site kernel its chain floor (chain_floor: the slowest site's
    dependent global-memory round trips, one thread a site and a warp a
-   site, counted from the plain version's chains); with --baseline, K1,
-   K6 and K7 as built from another tree's csrc (the sources of commit
-   7c58891, the thread-per-site K6 and K7, with their own wrappers'
-   arguments) are checked too and timed beside this
-   tree's, by the same method, in the order baseline, this tree, this
-   tree, baseline;
+   site, counted from the plain version's chains); with --baseline, K2
+   and K5 as built from another tree's csrc (the sources of commit
+   7db8aa5, the thread-per-site K2 and K5, called through this tree's
+   wrappers) are checked too and timed beside this tree's, by the same
+   method, in the order baseline, this tree, this tree, baseline;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, make_corrector, run_correction) with
@@ -40,12 +39,13 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    reason and strategy; fails if a kernel was not launched or more than
    5 % of the reads went to the host;
 6. the wide profile's kernel checks, on the main path's first retry
-   chunk (2^18 positions, 32 slots, walk_max 2040): K1 (and its
-   baseline), K6 in both modes and K3 on their records, as in 4;
+   chunk (2^18 positions, 32 slots, walk_max 2040): K1, K2 and K5 (and
+   their baselines and chain floors), K6 in both modes and K3 on the
+   walks' records, as in 4;
 7. the long-walk chunk (long_walk_chunk: 2^20 positions, 512 slots, a
    seeded branch-free genome whose planted errors walk past 248 and past
    2,040 and revisit at 31-33, 247-249 and 2,039-2,041 steps): K6 in both
-   modes at walk_max 248 and 2040 (and its baseline) and K3 on their
+   modes at walk_max 248 and 2040 and K3 on their
    records, as in 4, with the longest walk beside each time; there the
    plain walk runs once, as the reference, timed and counted for the
    chain floor in the same run;
@@ -245,26 +245,19 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
 
 
 def load_baseline(csrc):
-    """K1, K6 and K7 as built from another tree's ``csrc`` (those of
-    commit 7c58891: ``git archive 7c58891 br_tpu_torch/csrc``), each called with
-    its own wrapper's arguments: K1 and K7 through this tree's wrappers
-    (their C entry points did not change), K6 with the global history
-    scratch its entry point still takes, (walk_max+1) x NS words.  Built
-    with this tree's nvcc flags, one nvcc each, all at once; their calls
-    are not counted in kernels.LAUNCHES.  Returns {kernel name: function
-    with the arguments of the kernel's wrapper}."""
-    import torch
-
+    """K2 and K5 as built from another tree's ``csrc`` (those of commit
+    7db8aa5, one thread a site: ``git archive 7db8aa5 br_tpu_torch/csrc``),
+    called through this tree's wrappers (their C entry points did not
+    change).  Built with this tree's nvcc flags, one nvcc each, both at
+    once; their calls are not counted in kernels.LAUNCHES.  Returns
+    {kernel name: function with the arguments of the kernel's wrapper}."""
     from br_tpu_torch import kernels
-    from br_tpu_torch.correct import greedy, probe, walk
-    from br_tpu_torch.correct.layout import walk_profile
-    from br_tpu_torch.correct.sites import empty_sites
+    from br_tpu_torch.correct import sites, two
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    entries = {"dense_probe": None, "greedy_sites": None,
-               "walk_sites": "pppppppp" + "iiiiiiii" + "ppppppp" + "p"}
+    wrappers = {"one_sites": sites.one_sites, "two_sites": two.two_sites}
     procs = {}
-    for name in entries:
+    for name in wrappers:
         out = kernels.BUILD_DIR / f"lib{name}_baseline.so"
         procs[name] = (subprocess.Popen(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", csrc, "-o",
@@ -279,7 +272,7 @@ def load_baseline(csrc):
         entry, sig = kernels.KERNELS[name][1:]
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
-                       for ch in entries[name] or sig]
+                       for ch in sig]
         fn.restype = ctypes.c_int
         lib.br_error_string.argtypes = [ctypes.c_int]
         lib.br_error_string.restype = ctypes.c_char_p
@@ -300,47 +293,65 @@ def load_baseline(csrc):
                 kernels.LAUNCHES[name] = count
         return call
 
-    def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen, k,
-                   c, strategy, walk_max):
-        NS, dev = s_pos.shape[0], codes.device
-        ew = walk_profile(walk_max).ew
-        out = empty_sites(NS, ew, dev)
-        hist = torch.empty((walk_max + 1) * NS, dtype=torch.int32,
-                           device=dev)
-        args = [codes, table, kmers, V, s_pos, n_sites, rstart, rlen,
-                codes.shape[0], rstart.shape[0], k, c, NS,
-                walk.MODES[strategy], walk_max, ew, hist, *out]
-        err = libs["walk_sites"].br_walk_sites(
-            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args], kernels.stream_of(dev))
-        check(err == 0, f"baseline walk_sites launch failed ({err})")
-        return out
+    return {name: through(name, fn) for name, fn in wrappers.items()}
 
-    return {"dense_probe": through("dense_probe", probe.dense_probe),
-            "greedy_sites": through("greedy_sites", greedy.greedy_sites),
-            "walk_sites": walk_sites}
+
+def two_thread_probes(probe, code_at, k, c, ii, corr, lf):
+    """The dependent probes of one thread's two attempt (one thread a
+    site, commit 7db8aa5's two_sites.cu), per lane: the apply steps' 25
+    probes (probe(t1), the alternatives of t1 and t2, the successors of
+    corr, second, t1 and t0), t3's when rem >= 4 and t2's when SCS's
+    other gates hold; then per scenario, while its gate holds, its
+    candidate and its window k-mers up to the first that is not solid,
+    and its one_more only when it is kept and within the read."""
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct import sites, two
+
+    rem = lf - ii
+    t1 = dc.add_nuc(corr, code_at(ii + 1), k)
+    n2, _ = sites.alt_last(probe, dc.add_nuc(t1, code_at(ii + 2), k))
+    count = (25 + (rem >= 4).long()
+             + ((rem >= 3) & probe(t1) & (n2 == 1)).long())
+    for s, (a_ok, km2) in enumerate(two.two_scenarios(probe, code_at, k, ii,
+                                                      corr, rem)):
+        off_a = two.APPLY_OFF[s]
+        alive = a_ok & (off_a + c <= rem)
+        km = km2
+        count = count + alive.long()
+        alive = alive & probe(km)
+        for t in range(c):
+            km = dc.add_nuc(km, code_at(ii + off_a + t), k)
+            count = count + alive.long()
+            alive = alive & probe(km)
+        count = count + (alive & (rem > c + two.CORRECT_OFF[s] + 1)).long()
+    return count
 
 
 def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
     """The chain floor of a site kernel on one chunk: the slowest site's
     count of dependent global-memory round trips under the old design
-    (one thread per site: K2, K5, and K6 and K7 up to commit 7c58891) and
-    under the new one (a warp per site: K6 and K7 now), counted from the
-    plain version's chains on this chunk; and the longest walk in steps
-    (K6), with the plain version's output.  A round trip is a set of loads none of which waits on
-    another's value or on a branch taken on one.  Per chain step: the
-    gate, 1; the attempt; the dirty simulation, old one a probe it made,
-    new 1; at the chain's end the successor search, old a binary search
-    (ceil(log2(n+1)) loads), new a 32-way warp search (ceil(log32(n+1))).
-    Per attempt: K2's One attempt 1; K5's two attempt at most
-    1 + 13 (c + 2), its bound (K5 is not redesigned); K6's err_len, old
-    one a k-mer absorbed (up to k) then one a V byte read up to the valid
-    position and the k-mer there, new 1 then one a 512-position block and
-    the k-mer; K6's walk, a step each, and old also one a history word
-    read in the steps up to walk_max (new reads shared memory); K7's walk,
-    old ms steps, new up to its failing step, and its validation probes,
-    old one each until one fails for every step tried, new 1.  Returns
-    (old, new, longest walk, the plain version's Sites)."""
+    (one thread per site: K2 and K5 up to commit 7db8aa5, K6 and K7 up to
+    commit 7c58891) and under the new one (a warp per site, all four
+    now), counted from the plain version's chains on this chunk; and the
+    longest walk in steps (K6), with the plain version's output.  A round
+    trip is a set of loads none of which waits on another's value or on a
+    branch taken on one; code loads, which hit the lines the chain has
+    just read, are not counted.  Per chain step: the gate, 1; the
+    attempt; the dirty simulation, old one a probe it made, new 1; at the
+    chain's end the successor search, old a binary search (ceil(log2(n+1))
+    loads), new 1 when the successor is among the 32 listed sites from
+    the site, else 1 and a 32-way warp search past them
+    (ceil(log32(n+1))).  Per attempt:
+    K2's One attempt 1 in both; K5's two attempt, old one a probe it made
+    (two_thread_probes), new 2 (its apply steps, then every scenario's
+    score and one_more); K6's err_len, old one a k-mer absorbed (up to k)
+    then one a V byte read up to the valid position and the k-mer there,
+    new 1 then one a 512-position block and the k-mer; K6's walk, a step
+    each, and old also one a history word read in the steps up to
+    walk_max (new reads shared memory); K7's walk, old ms steps, new up
+    to its failing step, and its validation probes, old one each until
+    one fails for every step tried, new 1.  Returns (old, new, longest
+    walk, the plain version's Sites)."""
     import math
 
     import torch
@@ -422,7 +433,8 @@ def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
         elif kind == "two":
             res = two.two_attempt_plain(probe, code_at, k, c, ii, rg, corr,
                                         lf)
-            o = n = torch.full_like(ii, 1 + 13 * (c + 2))
+            o = two_thread_probes(probe, code_at, k, c, ii, corr, lf)
+            n = torch.full_like(ii, 2)
         else:
             res = sites.one_attempt_plain(probe, code_at, k, c, ii, corr, lf)
             o = n = torch.ones_like(ii)
@@ -432,14 +444,16 @@ def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
     log2 = math.ceil(math.log2(n_eff + 1))
     log32 = math.ceil(math.log(n_eff + 1, 32))
 
-    def trace(act, gate, probes, search):
+    def trace(act, gate, probes, search, q):
         o_att, n_att = pending.pop()
         g = gate.nonzero().squeeze(1)
         oa = torch.zeros_like(probes)
         na = torch.zeros_like(probes)
         oa[g], na[g] = o_att, n_att
+        near = q - act < 32
         old[act] += 1 + oa + probes + search.long() * log2
-        new[act] += 1 + na + (probes > 0).long() + search.long() * log32
+        new[act] += (1 + na + (probes > 0).long()
+                     + search.long() * torch.where(near, 1, 1 + log32))
 
     ew = walk_profile(walk_max).ew if kind in walk.MODES else 1
     out = sites.run_sites_plain(table, codes, d.kmers, d.s_pos, d.n_sites,
@@ -451,12 +465,12 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
                   reps=10, plain_reps=2, baseline=None):
     """Kernels against their plain versions on one chunk: on the first
     chunk K1-K7 at the default walk profile; on a retry chunk
-    (``kind="retry"``) K1, K6 in both modes at walk_max 2040 and K3 on
-    their records; on the long-walk chunk (``kind="long"``) K6 in both
-    modes at walk_max 248 and 2040 and K3 on their records.  With
+    (``kind="retry"``) K1, K2, K5, K6 in both modes at walk_max 2040 and
+    K3 on the walks' records; on the long-walk chunk (``kind="long"``) K6
+    in both modes at walk_max 248 and 2040 and K3 on their records.  With
     ``plain_reps`` 0 a plain version runs once: its time is that call's,
     and a walk's is the chain-floor run.  ``baseline``
-    (from load_baseline) gives K1, K6 and K7 as another tree built them:
+    (from load_baseline) gives K2 and K5 as another tree built them:
     each is checked and timed beside this tree's.  Returns {name: {ms,
     plain_ms, bound_ms, max_abs_err, ...}}; names with a bracket are a
     kernel's further configurations."""
@@ -547,8 +561,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     k1_name = {"first": "dense_probe", "retry": "dense_probe[retry chunk]",
                "long": "dense_probe[long-walk chunk]"}[kind]
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
-            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20,
-            kb=None if kind == "long" else based("dense_probe", *d_args))
+            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20)
 
     def site_run(name, kern, plain, window, kreps=reps, kb=None):
         """A site kernel, compared on the entries it writes; its bytes
@@ -572,7 +585,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         else:   # one plain run: the reference, its time and the floor
             plain = lambda: floor(*f_args, walk_max=wm)  # noqa: E731
         out = site_run(name, lambda: walk.walk_sites(*w_args), plain,
-                       3 * k + c, 3, kb=based("walk_sites", *w_args))
+                       3 * k + c, 3)
         used = out.rec_p < BIG
         log(f"  {name}: {int(used.sum())} records, longest emit "
             f"{int(out.rec_c[used].max()) if bool(used.any()) else 0} "
@@ -606,6 +619,21 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
             f"({int(rl[most])} bases); windows of {splice.WINDOW} sites")
         return x_plain, n_rec
 
+    # K2 and K5 on K1's output (and their baselines)
+    s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k)
+    if kind != "long":
+        tag = "" if kind == "first" else "[retry chunk]"
+        s = site_run("one_sites" + tag, lambda: sites.one_sites(*s_args, c),
+                     lambda: sites.one_sites_plain(*s_args, c), c + 3 + k,
+                     20, kb=based("one_sites", *s_args, c))
+        floor("one_sites" + tag, "one", table, codes, d, rs, rl, k, c, ms)
+        log_floor("one_sites" + tag)
+        site_run("two_sites" + tag, lambda: two.two_sites(*s_args, c),
+                 lambda: two.two_sites_plain(*s_args, c), c + 6 + k, 20,
+                 kb=based("two_sites", *s_args, c))
+        floor("two_sites" + tag, "two", table, codes, d, rs, rl, k, c, ms)
+        log_floor("two_sites" + tag)
+
     if kind != "first":
         tag = "retry chunk" if kind == "retry" else "long-walk chunk"
         for wm in (WIDE_WALK_MAX,) if kind == "retry" else (WALK_MAX,
@@ -617,21 +645,12 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
             f"{int(d.n_sites[0])} sites")
         return res
 
-    # the site kernels on K1's output
-    s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k)
-    s = site_run("one_sites", lambda: sites.one_sites(*s_args, c),
-                 lambda: sites.one_sites_plain(*s_args, c), c + 3 + k, 20)
-    floor("one_sites", "one", table, codes, d, rs, rl, k, c, ms)
-    log_floor("one_sites")
-    site_run("two_sites", lambda: two.two_sites(*s_args, c),
-             lambda: two.two_sites_plain(*s_args, c), c + 6 + k)
-    floor("two_sites", "two", table, codes, d, rs, rl, k, c, ms)
-    log_floor("two_sites")
+    # the walks and greedy on K1's output
     g = walk_run("graph", WALK_MAX)
     walk_run("gap-size", WALK_MAX)
     site_run("greedy_sites", lambda: greedy.greedy_sites(*s_args, ms, c),
              lambda: greedy.greedy_sites_plain(*s_args, ms, c), ms + c + k,
-             3, kb=based("greedy_sites", *s_args, ms, c))
+             3)
     floor("greedy_sites", "greedy", table, codes, d, rs, rl, k, c, ms)
     log_floor("greedy_sites")
     x, n_rec = k3("chain_splice", s)
@@ -896,10 +915,10 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CSRC_DIR",
-                    help="also check and time K1, K6 and K7 as built from "
-                         "this directory's dense_probe.cu, walk_sites.cu and "
-                         "greedy_sites.cu (the thread-per-site K6 and K7: "
-                         "git archive 7c58891 br_tpu_torch/csrc)")
+                    help="also check and time K2 and K5 as built from this "
+                         "directory's one_sites.cu and two_sites.cu (the "
+                         "thread-per-site K2 and K5: git archive 7db8aa5 "
+                         "br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
         import torch

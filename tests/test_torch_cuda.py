@@ -85,11 +85,13 @@ def test_kernels_match_plain(dev, cases, name):
 
 
 @pytest.mark.parametrize("name", tc.FAMILIES)
-@pytest.mark.parametrize("strategy", ["two", "graph", "gap-size", "greedy",
-                                      "graph-wide", "gap-size-wide"])
+@pytest.mark.parametrize("strategy", ["one", "two", "graph", "gap-size",
+                                      "greedy", "graph-wide",
+                                      "gap-size-wide"])
 def test_site_kernels_match_plain(dev, cases, strategy, name):
-    """K5, K6 (both modes, both walk profiles) and K7 against their plain
-    versions, and K3 on their records (multi-word emits for the walks)."""
+    """K2, K5, K6 (both modes, both walk profiles) and K7 against their
+    plain versions, and K3 on their records (multi-word emits for the
+    walks)."""
     g, codes, rstart, rlen = cases[name]
     table = SolidSet.from_sequences([g], tc.K).device_words(dev)
     codes = torch.from_numpy(codes).to(dev)
@@ -98,7 +100,10 @@ def test_site_kernels_match_plain(dev, cases, strategy, name):
     d = probe.dense_probe_plain(table, codes, rs, rl, tc.K,
                                 site_capacity(tc.CHUNK))
     args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K)
-    if strategy == "two":
+    if strategy == "one":
+        kname, fns, extra = "one_sites", (sites.one_sites,
+                                          sites.one_sites_plain), (tc.C,)
+    elif strategy == "two":
         kname, fns, extra = "two_sites", (two.two_sites,
                                           two.two_sites_plain), (tc.C,)
     elif strategy == "greedy":
@@ -352,3 +357,54 @@ def test_greedy_sites_stress(dev, seed):
     x_args = (c, rs, rl, d.s_pos, d.n_sites, sp, d.cap_read)
     _same(splice.chain_splice(*x_args[:5], s, d.cap_read),
           splice.chain_splice_plain(*x_args))
+
+
+# Adversarial inputs of K2 and K5 (tests/torch_cases.two_stress_case):
+# every two-error scenario planted and selected, ties broken by one
+# one_more or left unbroken, reads ending 0-5 bases after an error, the
+# last read ending at the chunk's last position, nested repairs past
+# SLOTS.
+
+@functools.lru_cache(maxsize=None)
+def _two_stress(seed):
+    return tc.two_stress_case(seed, chunk=1 << 18, nreads=512)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("strategy", ["one", "two"])
+def test_one_two_sites_stress(dev, strategy, seed):
+    """K2 and K5 against their plain versions on the two-error stress
+    family at 2^18, and K3 on the kernel's records."""
+    table, c, rs, rl, d = _on_card(dev, *_two_stress(seed))
+    args = (table, c, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K, tc.C)
+    kname, fns = {"one": ("one_sites", (sites.one_sites,
+                                        sites.one_sites_plain)),
+                  "two": ("two_sites", (two.two_sites,
+                                        two.two_sites_plain))}[strategy]
+    before = kernels.LAUNCHES[kname]
+    s = fns[0](*args)
+    sp = fns[1](*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kname] == before + 1
+    _same(sites.defined(s), sites.defined(sp))
+    assert bool((sp.s_cap == CAP_OVERFLOW).any())
+    assert int((sp.rec_p < BIG).sum()) > 1000
+    x_args = (c, rs, rl, d.s_pos, d.n_sites, sp, d.cap_read)
+    _same(splice.chain_splice(*x_args[:5], s, d.cap_read),
+          splice.chain_splice_plain(*x_args))
+
+
+@pytest.mark.parametrize("confirm", [0, 1, 12, 61])
+@pytest.mark.parametrize("strategy", ["one", "two"])
+def test_one_two_sites_any_confirm(dev, strategy, confirm):
+    """K2 and K5 at other confirm counts than the default 5: c = 0 and 1,
+    12 (more than one round of 32 probes), 61 (a code window past 64
+    codes, read from memory)."""
+    table, c, rs, rl, d = _on_card(dev, *_two_stress(1))
+    args = (table, c, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K, confirm)
+    fns = {"one": (sites.one_sites, sites.one_sites_plain),
+           "two": (two.two_sites, two.two_sites_plain)}[strategy]
+    s, sp = (f(*args) for f in fns)
+    _same(sites.defined(s), sites.defined(sp))
+    if confirm <= 12:
+        assert int((sp.rec_p < BIG).sum()) > 100

@@ -1,6 +1,7 @@
-"""The adversarial inputs of K1, K3, K6 and K7
+"""The adversarial inputs of K1, K2, K3, K5, K6 and K7
 (``torch_cases.dense_stress_case``, ``splice_stress_case``,
-``walk_stress_case`` and ``greedy_stress_case``) hold what the card's
+``walk_stress_case``, ``greedy_stress_case`` and ``two_stress_case``)
+hold what the card's
 tests rely on: checked here, at a small size, through the kernels' plain
 versions on the CPU.  The kernels themselves meet these inputs in
 tests/test_torch_cuda.py."""
@@ -11,7 +12,7 @@ import torch
 
 import torch_cases as tc
 from br_tpu_torch.correct import device_codec as dc
-from br_tpu_torch.correct import greedy, probe, sites, splice, walk
+from br_tpu_torch.correct import greedy, probe, sites, splice, two, walk
 from br_tpu_torch.correct.layout import BIG, CAP_OVERFLOW, site_capacity
 from br_tpu_torch.correct.sites import Sites
 from br_tpu_torch.set.solid import SolidSet
@@ -233,3 +234,37 @@ def test_greedy_stress_case_covers_its_patterns():
             ties += _gotoh_ties(before + read, before + path) > 0
     assert its == set(range(tc.MS))          # every step decides somewhere
     assert walk_fail0 and rem_cut and last_probe and ties
+
+
+def test_two_stress_case_covers_its_patterns():
+    """Through the plain two attempt (recorded): every one of the 13
+    scenarios is selected somewhere; ties between perfect scenarios occur
+    broken by a unique one_more (applied) and with none or with several
+    (not applied); attempts meet every rem gate (rem 1-4) and windows
+    past the read end; a site of each pass caps with CAP_OVERFLOW; the
+    last read ends at the chunk's last position."""
+    pieces, codes, rstart, rlen = case = tc.two_stress_case(
+        tc.TWO_STRESS_SEED)
+    assert (rstart + rlen == tc.CHUNK).any()
+    table, c, rs, rl, d = _sites_inputs(*case)
+    args = (table, c, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K, tc.C)
+    with tc.record_attempts(two, ["two_attempt_plain"]) as calls:
+        s = two.two_sites_plain(*args)
+    selected, rems = set(), set()
+    ties = {"one": 0, "none": 0, "several": 0}
+    for (probe_, code_at, k, cc, ii, rg, corr, lf), a in calls[
+            "two_attempt_plain"]:
+        keep, more, _ = two.two_scores(probe_, code_at, k, cc, ii, corr, lf)
+        nk1, nk2 = keep.sum(0), (keep & more).sum(0)
+        sel = torch.where(nk1 == 1, keep, keep & more).long().argmax(0)
+        selected |= set(sel[a.ok].tolist())
+        tie = nk1 > 1
+        ties["one"] += int((tie & (nk2 == 1) & a.ok).sum())
+        ties["none"] += int((tie & (nk2 == 0) & ~a.ok).sum())
+        ties["several"] += int((tie & (nk2 > 1) & ~a.ok).sum())
+        rems |= set((lf - ii).tolist())
+    assert selected == set(range(len(two.APPLY_OFF)))
+    assert all(ties.values()), ties
+    assert {1, 2, 3, 4} <= rems
+    assert bool((s.s_cap == CAP_OVERFLOW).any())
+    assert bool((sites.one_sites_plain(*args).s_cap == CAP_OVERFLOW).any())

@@ -28,8 +28,12 @@ compares the port against the recordings; the slow tier recomputes them
 with JAX and checks the recordings.  The ``graph`` and ``gap-size``
 recordings also hold the long-walk family at the wide profile
 (walk_max = 2040) under the name ``long_walk_wide``.
+``golden/torch_two_stress_k13.npz`` holds br_tpu's ``one`` and ``two``
+passes on the two-error stress family (``two_stress_case``; name
+``two_stress`` to record it).
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py [strategy ...]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py \
+        [strategy ... two_stress]
 """
 
 from __future__ import annotations
@@ -54,6 +58,11 @@ def golden_path(strategy: str) -> str:
 
 
 GOLDEN = golden_path("one")
+#: br_tpu's one and two passes on two_stress_case(TWO_STRESS_SEED) at the
+#: test geometry, under the names "one" and "two".
+TWO_STRESS_GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                                 "torch_two_stress_k13.npz")
+TWO_STRESS_SEED = 1
 BASES = np.frombuffer(b"ACTG", np.uint8)
 _RC = bytes.maketrans(b"ACGT", b"TGCA")
 
@@ -213,6 +222,11 @@ def exact_fill_len(genome: bytes, read: bytes) -> int:
     return len(One(solid, C).correct(read))
 
 
+def pieces_of(g):
+    """A case's genome: one sequence, or a list of pieces."""
+    return g if isinstance(g, list) else [g]
+
+
 def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True):
     """Run br_tpu's pass of ``strategy`` on every case, eagerly unless
     ``eager`` is False (then it compiles for many minutes)."""
@@ -229,8 +243,8 @@ def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True):
     for name, (g, codes, rstart, rlen) in cases.items():
         # device arrays: eager vmapped code cannot index numpy arrays
         args = [jax.numpy.asarray(x) for x in (
-            SolidSet.from_sequences([g], K).device_words(), codes, rstart,
-            rlen)]
+            SolidSet.from_sequences(pieces_of(g), K).device_words(), codes,
+            rstart, rlen)]
         with jax.disable_jit() if eager else contextlib.nullcontext():
             o, n, cap, aux, _dl, _dc = fn(*args)
             jax.block_until_ready(o)
@@ -260,7 +274,7 @@ def run_port_pass(strategy, case, walk_max=None, device="cpu"):
     g, codes, rstart, rlen = case
     kw = {} if walk_max is None else {"walk_max": walk_max}
     fn = make_pass3_fn(K, strategy, C, MS, C, CHUNK, R, **kw)
-    out = fn(SolidSet.from_sequences([g], K).device_words(device),
+    out = fn(SolidSet.from_sequences(pieces_of(g), K).device_words(device),
              *(torch.from_numpy(x).to(device) for x in (codes, rstart,
                                                           rlen)))
     return tuple(t.cpu().numpy() for t in out)
@@ -774,6 +788,133 @@ def greedy_stress_case(seed, chunk=CHUNK, nreads=R):
     return (pieces, *_stress_chunk(reads, False, rng, chunk, nreads))
 
 
+# ---------------------------------------------------------------------------
+# Adversarial inputs of K2 and K5 (numpy, from a seed): the CUDA tests hold
+# the kernels against their plain versions on them, and the CPU tests hold
+# the port's one and two passes against br_tpu's recorded passes.
+# ---------------------------------------------------------------------------
+
+#: two-error patterns of exist/two.rs's scenarios, as edits of the genome
+#: at p: (offset, op) with op "S" (substitute), "I" (insert a random base
+#: before it) or "D" (delete it); the scenarios' names read X C Y, C a
+#: correct base between the two errors.
+TWO_PATTERNS = {
+    "II": ((0, "I"), (0, "I")), "IS": ((0, "I"), (0, "S")),
+    "SS": ((0, "S"), (1, "S")), "SD": ((0, "S"), (1, "D")),
+    "DD": ((0, "D"), (1, "D")), "ICI": ((0, "I"), (1, "I")),
+    "ICS": ((0, "I"), (1, "S")), "ICD": ((0, "I"), (1, "D")),
+    "SCI": ((0, "S"), (2, "I")), "SCS": ((0, "S"), (2, "S")),
+    "SCD": ((0, "S"), (2, "D")), "DCI": ((0, "D"), (2, "I")),
+    "DCD": ((0, "D"), (2, "D")), "I": ((0, "I"),), "S": ((0, "S"),),
+    "D": ((0, "D"),),
+}
+
+
+def plant(rng, r, p, pattern):
+    """The read r (codes) with one of TWO_PATTERNS planted at p."""
+    r = r.copy()
+    for off, op in sorted(TWO_PATTERNS[pattern], reverse=True):
+        q = p + off
+        if op == "S":
+            r[q] ^= np.uint8(rng.integers(1, 4))
+        elif op == "D":
+            r = np.delete(r, q)
+        else:
+            r = np.insert(r, q, np.uint8(rng.integers(0, 4)))
+    return r
+
+
+def _crafted_two(rng, kind):
+    """(read, genome pieces) where an inserted base E at i, after the
+    bases b of piece A, has several perfect scenarios: SCI and DCI score
+    alike (the same candidate and APPLY_OFF), A holding b, X', r1, r3,
+    ..., r8 and then Q; piece B (Z, b's last 7 bases, r1, r2, ...) makes
+    DCI's one_more solid ("DCI": it alone, so it applies; "DCI-two": Q =
+    r9 makes SCI's solid too; "DCI-none": no B, neither).  "II": A holds
+    b, X', r3, ..., r7, Q, so II alone scores perfect."""
+    pre = rng.integers(0, 4, 40).astype(np.uint8)   # ends with b
+    r = rng.integers(0, 4, 60).astype(np.uint8)     # r[j] is r_j+1
+    x = np.uint8((pre[-1] + rng.integers(1, 4)) % 4)
+    e = np.uint8((x + rng.integers(1, 4)) % 4)
+    if kind == "II":
+        core = np.concatenate([[x], r[2:7]])
+        q = (r[7] + 1) % 4
+    else:
+        core = np.concatenate([[x, r[0]], r[2:8]])
+        q = r[8] if kind == "DCI-two" else (r[8] + 1) % 4
+    tail = rng.integers(0, 4, 20)
+    a = np.concatenate([pre, core, [q], tail]).astype(np.uint8)
+    pieces = [a]
+    if kind != "DCI-none":
+        z = (pre[-12:-7] + 1) % 4
+        pieces.append(np.concatenate([z, pre[-7:], r]).astype(np.uint8))
+    return np.concatenate([pre, [e], r]).astype(np.uint8), pieces
+
+
+def two_stress_case(seed, chunk=CHUNK, nreads=R):
+    """K2's and K5's inputs: (genome pieces, codes, rstart, rlen).  A
+    random genome at k = 13 with short tandem repeats (periods 1-6, 4-12
+    units) every 30-70 bases, and reads of it carrying, every 30-50 bases,
+    one of TWO_PATTERNS (the 13 two-error scenarios and single I/S/D
+    errors), near the repeats or inside them, so that several scenarios
+    score perfect at one site.  In turn a read also: ends 0-5 bases after
+    its last pattern (every rem gate, and the window past the read end
+    into the next slot); carries twelve substitutions or substitution
+    pairs 8 bases apart (nested repairs closer than k, more than SLOTS of
+    them: CAP_OVERFLOW); or is one of ``_crafted_two``'s (ties broken by
+    one one_more, ties with none or two, DCI and II selected).  The last
+    read fills the chunk's last slot to position chunk - 1 (code_at's
+    clip)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(120):
+        parts.append(rng.integers(0, 4, int(rng.integers(30, 70))))
+        unit = rng.integers(0, 4, int(rng.integers(1, 7)))
+        parts.append(np.tile(unit, int(rng.integers(4, 13))))
+    g = np.concatenate(parts).astype(np.uint8)
+    pieces = [g]
+    names = list(TWO_PATTERNS)
+    crafted = ("DCI", "DCI-none", "DCI-two", "II")
+    reads, b = [], 0
+    while len(reads) < nreads:
+        if b % 8 == 7:
+            r, more = _crafted_two(rng, crafted[(b // 8) % len(crafted)])
+            pieces += more
+            reads.append(r)
+            b += 1
+            continue
+        ln = int(rng.integers(200, 420))
+        lo = int(rng.integers(0, len(g) - ln))
+        r = g[lo:lo + ln].copy()
+        p = int(rng.integers(K + 2, 30))
+        if b % 8 in (2, 5):     # substitutions or pairs 8 apart: nested
+            for _ in range(12):
+                r = plant(rng, r, p, "S" if b % 8 == 2 else "SS")
+                p += 8
+            p += K + 20
+        last = p
+        while p < len(r) - 30:
+            r = plant(rng, r, p, names[int(rng.integers(len(names)))])
+            last = p
+            p += int(rng.integers(30, 51))
+        if b % 3 == 1:          # the read ends 0-5 bases after its pattern
+            r = r[:last + (b // 3) % 6]
+        reads.append(r)
+        b += 1
+    codes = [BASES[x].tobytes() for x in reads]
+    caps, used = [], 0
+    for x in codes:
+        cap = slot_len(len(x))
+        if used + cap > chunk or len(caps) == nreads:
+            break
+        caps.append(cap)
+        used += cap
+    caps[-1] = len(codes[len(caps) - 1])     # the last read ends the chunk
+    caps[-2] += chunk - sum(caps)
+    out = pack(codes[:len(caps)], caps, rng, chunk, nreads)
+    return ([BASES[x].tobytes() for x in pieces], *out)
+
+
 def record_attempts(module, names):
     """A context that wraps the plain functions ``names`` of ``module`` so
     that each call's arguments and results are appended to a list: the
@@ -808,9 +949,20 @@ def load_golden(path=GOLDEN):
                 z[f"{n}/aux"]) for n in names}
 
 
+def record_two_stress():
+    """br_tpu's one and two passes on the two-error stress family."""
+    case = {"two_stress": two_stress_case(TWO_STRESS_SEED)}
+    return {st: jax_pass_outputs(case, st)["two_stress"]
+            for st in ("one", "two")}
+
+
 if __name__ == "__main__":
     import sys
 
-    for st in sys.argv[1:] or STRATEGIES:
+    for st in sys.argv[1:] or STRATEGIES + ("two_stress",):
+        if st == "two_stress":
+            save_golden(record_two_stress(), TWO_STRESS_GOLDEN)
+            print("wrote", TWO_STRESS_GOLDEN, flush=True)
+            continue
         save_golden(record(st), golden_path(st))
         print("wrote", golden_path(st), flush=True)
