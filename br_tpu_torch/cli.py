@@ -21,8 +21,12 @@ reference: ``first-minimum`` | ``rarefaction PERCENT`` |
 ``-c`` names the strategies of the chain, in order, from ``one``,
 ``two``, ``graph``, ``greedy`` and ``gap-size``; without ``-c`` the chain
 is br's default, all five in that order.  ``large-kmer`` (k > 17, ROADMAP
-A7) is refused.  ``--device`` is ``cuda`` (default) or ``cpu`` (the
-kernels' plain PyTorch versions).
+A5) is refused, and so is any set whose k is above the device path's 15
+(k = 17 is ROADMAP A4): for ``fasta`` before the host counts anything,
+for ``count`` and ``solid`` as soon as the set is loaded.  ``--device`` is
+``cuda`` (default) or ``cpu`` (the kernels' plain PyTorch versions).
+``-t`` sets the host threads of the native engine that corrects the
+reads the device does not finish (0: one a core).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from br_tpu_torch import (
     DEFAULT_RECORD_BUFFER,
     __version__,
 )
+from br_tpu_torch.correct.device_codec import MAX_K as DEVICE_MAX_K
 from br_tpu_torch.count import Counter, Spectrum, ThresholdMethod
 from br_tpu_torch.errors import (
     AbundanceThresholdOrAbundanceMethod,
@@ -85,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=DEFAULT_RECORD_BUFFER,
                    help="number of records per batch")
     p.add_argument("-t", "--threads", type=int, default=0,
-                   help="host worker threads (accepted for br parity; the "
-                   "device path does not use it)")
+                   help="host threads of the native engine for the reads "
+                   "the device does not finish (0: one a core)")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="silence all output")
     p.add_argument("-v", "--verbosity", action="count", default=0)
@@ -187,6 +192,17 @@ def build_set(args):
     raise SystemExit(f"unknown subcommand {args.subcommand}")
 
 
+def refuse_k(k: int) -> bool:
+    """Print one error line and return True when the device path cannot
+    take k (an odd k <= 15; k = 17 waits on ROADMAP A4)."""
+    if 1 <= k <= DEVICE_MAX_K:
+        return False
+    print(f"error: k={k} is not ported to br_tpu_torch yet: its device "
+          f"path takes an odd k <= {DEVICE_MAX_K} (k = 17 is ROADMAP A4, "
+          "larger k ROADMAP A5)", file=sys.stderr)
+    return True
+
+
 def configure_logging(quiet: bool, verbosity: int) -> None:
     """stderr logging à la stderrlog (src/main.rs:22-28): -q silences,
     -v raises verbosity."""
@@ -206,6 +222,10 @@ def main(argv=None) -> int:
     configure_logging(args.quiet, args.verbosity)
 
     corrections = args.corrections or list(DEFAULT_CORRECTIONS)
+    # before anything is counted: a Counter at k = 17 holds 2^33 bytes
+    if (args.subcommand == "fasta"
+            and refuse_k(round_down_odd(args.kmer_size))):
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda was asked for and CUDA is not "
               "available; pass --device cpu to run on the CPU",
@@ -213,11 +233,13 @@ def main(argv=None) -> int:
         return 1
     if args.subcommand == "large-kmer":
         print("error: large-kmer (k > 17) is not ported to br_tpu_torch "
-              "yet (ROADMAP A7)", file=sys.stderr)
+              "yet (ROADMAP A5)", file=sys.stderr)
         return 2
 
     try:
         kmer_set = build_set(args)
+        if refuse_k(kmer_set.k):
+            return 2
         inputs, outputs = stdio_streams(args.inputs, args.outputs)
         n = run_correction(
             inputs,
@@ -230,6 +252,7 @@ def main(argv=None) -> int:
             record_buffer=args.record_buffer,
             line_width=args.line_width,
             device=args.device,
+            threads=args.threads,
         )
         if args.verbosity:
             logging.getLogger("br_tpu_torch").info("corrected %d records", n)

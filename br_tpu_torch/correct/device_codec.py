@@ -24,12 +24,16 @@ def comp_mask(k: int) -> int:
     return int("10" * k, 2)
 
 
+#: the largest k the device path takes (a k-mer in 32 bits).
+MAX_K = 15
+
+
 def check_k(k: int) -> None:
     """The port's device path holds a k-mer in 32 bits: odd k <= 15."""
-    if not (1 <= k <= 15 and k % 2 == 1):
+    if not (1 <= k <= MAX_K and k % 2 == 1):
         raise ValueError(
-            f"br_tpu_torch's device path needs an odd k <= 15, got k={k} "
-            "(k = 17 and the hash-set range are ROADMAP A6/A7)")
+            f"br_tpu_torch's device path needs an odd k <= {MAX_K}, got "
+            f"k={k} (k = 17 and the hash-set range are ROADMAP A4/A5)")
 
 
 def check_table(table: torch.Tensor, k: int) -> None:

@@ -25,7 +25,8 @@ reads retry once on a sibling corrector with the wide walk profile
 package's do (engine3.py:2112-2122, :2235-2250): long walk accepts and
 long gap fills fit there, and a read capped because its chunk's sites
 overflowed NS meets fewer neighbours.  Reads capped again are corrected
-on the host by the oracle, so the output is always the reference's.
+on the host by the native engine (``br_tpu_torch.native``), so the output
+is always the reference's.
 """
 
 from __future__ import annotations
@@ -139,7 +140,8 @@ class Torch3Corrector:
     """Flat-packed batched corrector on one device (port of
     ``Tpu3Corrector``): same contract, bit-exact output; capped reads
     retry once on the sibling with the wide walk profile, and impure,
-    too-long and still-capped reads are corrected by the host oracle."""
+    too-long and still-capped reads are corrected on the host by the
+    native engine, on ``threads`` threads (0: one a core)."""
 
     #: flat positions per chunk
     CHUNK = 1 << 20
@@ -149,7 +151,7 @@ class Torch3Corrector:
     def __init__(self, valid_kmer, corrections, confirm: int,
                  max_search: int, chunk: int | None = None,
                  nreads: int | None = None, device=None, table=None,
-                 walk_max: int = WALK_MAX):
+                 walk_max: int = WALK_MAX, threads: int = 0, engine=None):
         from br_tpu_torch.set.solid import SolidSet
 
         if not isinstance(valid_kmer, SolidSet):
@@ -178,14 +180,17 @@ class Torch3Corrector:
                                          walk_max=walk_max)
                         for s in set(self.corrections)}
         self._wide = None
-        self._oracle = None
+        self.threads = threads
+        #: the native host engine, built at first use (the wide sibling
+        #: is given its parent's)
+        self._engine = engine
         self.last_stats: dict = {}
         self.last_host: list = []
 
     # -- planning (host) -----------------------------------------------------
 
     def _slot_len(self, n: int) -> int:
-        # net-insertion headroom; overflow -> cap -> retry -> host oracle.
+        # net-insertion headroom; overflow -> cap -> retry -> host engine.
         # A wide profile budgets a full walk emit (engine3.py:2064-2072).
         slack = max(64, n // 8)
         if self.walk_max > WALK_MAX:
@@ -236,13 +241,13 @@ class Torch3Corrector:
     def _get_wide(self):
         """The retry sibling (engine3.py:2112-2122): the wide walk
         profile, chunks of at most 2^18 positions and 32 slots, sharing
-        the device bitfield."""
+        the device bitfield and the native host engine."""
         if self._wide is None:
             self._wide = Torch3Corrector(
                 self.valid_kmer, self.corrections, self.c, self.ms,
                 chunk=min(self.CHUNK, 1 << 18), nreads=min(self.R, 32),
                 device=self.device, table=self.table,
-                walk_max=WIDE_WALK_MAX)
+                walk_max=WIDE_WALK_MAX, engine=self.native_engine())
         return self._wide
 
     # -- the batch interface ---------------------------------------------------
@@ -307,7 +312,7 @@ class Torch3Corrector:
                     lo = starts[b]
                     out[i] = _DECODE[codes[lo : lo + n_np[b]]].tobytes()
         host = sorted(impure | too_long)
-        todo = host  # the reads this corrector's oracle corrects
+        todo = host  # the reads this corrector's host engine corrects
         n_retried = 0
         # only a batch on the default profile retries (engine3.py:2242)
         if capped and self.walk_max == WALK_MAX:
@@ -316,14 +321,14 @@ class Torch3Corrector:
             for i, s in zip(capped, fixed):
                 out[i] = s
             n_retried = len(capped)
-            # capped again: the sibling's oracle corrected them
+            # capped again: the sibling's host engine corrected them
             capped = [capped[j] for j in wide.last_host]
         else:
             todo = host + capped
         #: the host/device split of the last batch: every read the device
         #: did not finish (impure bytes, too long for a chunk, capped
-        #: after the retry) is corrected by the host oracle and counted in
-        #: "fallback".
+        #: after the retry) is corrected by the native host engine and
+        #: counted in "fallback".
         self.last_stats = {
             "total": len(seqs),
             "fallback": len(host) + len(capped),
@@ -342,10 +347,18 @@ class Torch3Corrector:
                 out[i] = s
         return out
 
-    def _oracle_correct_many(self, seqs, two_side: bool):
-        from br_tpu_torch.correct.reference import build_methods, correct_read
+    def native_engine(self):
+        """The native host engine (built and loaded at first use; a build
+        or load that fails raises: no other host path is taken)."""
+        if self._engine is None:
+            from br_tpu_torch.native import NativeCorrector
 
-        if self._oracle is None:
-            self._oracle = build_methods(self.corrections, self.valid_kmer,
-                                         self.c, self.ms)
-        return [correct_read(s, self._oracle, two_side) for s in seqs]
+            self._engine = NativeCorrector(self.valid_kmer, self.corrections,
+                                           self.c, self.ms,
+                                           threads=self.threads)
+        return self._engine
+
+    def _oracle_correct_many(self, seqs, two_side: bool):
+        """The host reads of a batch, by the native engine (the reference
+        semantics of correct/reference.py, which stays the tests' oracle)."""
+        return self.native_engine().correct_batch(seqs, two_side)

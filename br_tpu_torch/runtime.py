@@ -43,16 +43,19 @@ def run_correction(
     line_width: int = 80,
     device=None,
     corrector=None,
+    threads: int = 0,
 ) -> int:
     """Correct every record of every (input, output) pair; returns #records.
 
     ``inputs`` / ``outputs`` are paths or streams, zipped pairwise like the
     reference (src/lib.rs:79).  ``device`` picks the corrector's device
-    (default CUDA); a ready ``corrector`` may be passed instead.
+    (default CUDA) and ``threads`` the native engine's host threads (0:
+    one a core); a ready ``corrector`` may be passed instead.
     """
     if corrector is None:
         corrector = make_corrector(valid_kmer, corrections, confirm,
-                                   max_search, device=device)
+                                   max_search, device=device,
+                                   threads=threads)
     n = 0
     for source, sink in zip(inputs, outputs):
         own_sink = isinstance(sink, str)
@@ -77,13 +80,14 @@ def run_correction(
 
 
 def make_corrector(valid_kmer, corrections, confirm, max_search,
-                   device=None):
+                   device=None, threads: int = 0):
     """The port's batch corrector on ``device`` ("cuda" by default, or
-    "cpu")."""
+    "cpu"), its host reads on ``threads`` native threads (0: one a
+    core)."""
     from br_tpu_torch.correct.engine3 import Torch3Corrector
 
     return Torch3Corrector(valid_kmer, corrections, confirm, max_search,
-                           device=device)
+                           device=device, threads=threads)
 
 
 def stdio_streams(input_paths: Optional[Sequence[str]],

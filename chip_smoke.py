@@ -7,8 +7,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 
 1. toolchain and device: the card's name and power limit (nvidia-smi),
    torch's CUDA version, nvcc's version, whether triton imports;
-2. build: the seven kernels from br_tpu_torch/csrc, one nvcc each, all at
-   once (started before the corpus is made, joined before first use);
+2. build: the seven kernels from br_tpu_torch/csrc, one nvcc each, and
+   the native host engine (br_tpu_torch/native, g++), all at once
+   (started before the corpus is made, joined before first use);
 3. the main path's input: a seeded corpus (br_tpu_torch.corpus: 2000
    reads over a 2 Mb genome, ~24 Mb at 95-98 % identity) and the solid set
    of the CLI's `fasta -k 13 -a 2` (host count and threshold);
@@ -27,21 +28,24 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    it (the longest, and the one with the most visited sites); beside
    each site kernel its chain floor (chain_floor: the slowest site's
    dependent global-memory round trips, one thread a site and a warp a
-   site, counted from the plain version's chains); with --baseline, K2
-   and K5 as built from another tree's csrc (the sources of commit
-   7db8aa5, the thread-per-site K2 and K5, called through this tree's
-   wrappers) are checked too and timed beside this tree's, by the same
-   method, in the order baseline, this tree, this tree, baseline;
+   site, counted from the plain version's chains); with --baseline, the
+   kernels K2, K5 and K4 whose sources differ in another tree's csrc (the
+   parent commit's: the thread-per-byte K4), built from there and called
+   through this tree's wrappers, are checked too and timed beside this
+   tree's, by the same method, in the order baseline, this tree, this
+   tree, baseline;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, make_corrector, run_correction) with
    every launch count set to 0 just before; the passes' cap counters by
-   reason and strategy; fails if a kernel was not launched or more than
-   5 % of the reads went to the host;
+   reason and strategy; the host engine's seconds (host_oracle_s: the
+   native engine on the reads the device did not finish), its name and
+   threads; fails if a kernel was not launched or more than 5 % of the
+   reads went to the host;
 6. the wide profile's kernel checks, on the main path's first retry
    chunk (2^18 positions, 32 slots, walk_max 2040): K1, K2 and K5 (and
    their baselines and chain floors), K6 in both modes and K3 on the
-   walks' records, as in 4;
+   walks' records, and K4 (and its baseline), as in 4;
 7. the long-walk chunk (long_walk_chunk: 2^20 positions, 512 slots, a
    seeded branch-free genome whose planted errors walk past 248 and past
    2,040 and revisit at 31-33, 247-249 and 2,039-2,041 steps): K6 in both
@@ -50,7 +54,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    plain walk runs once, as the reference, timed and counted for the
    chain floor in the same run;
 8. output check: a seeded sample of 100 reads, and every read the device
-   did not finish, against the port's scalar oracle of the default chain;
+   did not finish (those the native engine corrected), against the port's
+   Python oracle of the default chain (correct/reference.py), the judge
+   independent of both;
 9. the first slice's path, `-c one`, on the first 500 reads, with its own
    launch counts, fallback limit and oracle check.
 
@@ -245,17 +251,31 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
 
 
 def load_baseline(csrc):
-    """K2 and K5 as built from another tree's ``csrc`` (those of commit
-    7db8aa5, one thread a site: ``git archive 7db8aa5 br_tpu_torch/csrc``),
-    called through this tree's wrappers (their C entry points did not
-    change).  Built with this tree's nvcc flags, one nvcc each, both at
-    once; their calls are not counted in kernels.LAUNCHES.  Returns
-    {kernel name: function with the arguments of the kernel's wrapper}."""
+    """K2, K5 and K4 as built from another tree's ``csrc`` (the parent
+    commit's: ``git archive <commit> br_tpu_torch/csrc``), those whose
+    source or headers differ from this tree's, called through this tree's
+    wrappers (their C entry points did not change).  Built with this
+    tree's nvcc flags, one nvcc each, all at once; their calls are not
+    counted in kernels.LAUNCHES.  Returns {kernel name: function with the
+    arguments of the kernel's wrapper}."""
+    from pathlib import Path
+
     from br_tpu_torch import kernels
-    from br_tpu_torch.correct import sites, two
+    from br_tpu_torch.correct import reverse, sites, two
+
+    def sources(d, name):
+        d = Path(d)
+        return [p.read_bytes() for p in (sorted(d.glob("*.cuh"))
+                                         + [d / kernels.KERNELS[name][0]])]
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    wrappers = {"one_sites": sites.one_sites, "two_sites": two.two_sites}
+    wrappers = {"one_sites": sites.one_sites, "two_sites": two.two_sites,
+                "reverse_slots": reverse.reverse_slots}
+    for name in list(wrappers):
+        if sources(csrc, name) == sources(kernels.CSRC, name):
+            log(f"  baseline {name}: the same source as this tree's, "
+                f"not built")
+            del wrappers[name]
     procs = {}
     for name in wrappers:
         out = kernels.BUILD_DIR / f"lib{name}_baseline.so"
@@ -465,13 +485,14 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
                   reps=10, plain_reps=2, baseline=None):
     """Kernels against their plain versions on one chunk: on the first
     chunk K1-K7 at the default walk profile; on a retry chunk
-    (``kind="retry"``) K1, K2, K5, K6 in both modes at walk_max 2040 and
-    K3 on the walks' records; on the long-walk chunk (``kind="long"``) K6
-    in both modes at walk_max 248 and 2040 and K3 on their records.  With
-    ``plain_reps`` 0 a plain version runs once: its time is that call's,
-    and a walk's is the chain-floor run.  ``baseline``
-    (from load_baseline) gives K2 and K5 as another tree built them:
-    each is checked and timed beside this tree's.  Returns {name: {ms,
+    (``kind="retry"``) K1, K2, K5, K6 in both modes at walk_max 2040, K3
+    on the walks' records and K4 on the chunk as it came in; on the
+    long-walk chunk (``kind="long"``) K6 in both modes at walk_max 248
+    and 2040 and K3 on their records.  With ``plain_reps`` 0 a plain
+    version runs once: its time is that call's, and a walk's is the
+    chain-floor run.  ``baseline`` (from load_baseline) gives K2, K5 and
+    K4 as another tree built them: each is checked and timed beside this
+    tree's.  Returns {name: {ms,
     plain_ms, bound_ms, max_abs_err, ...}}; names with a bracket are a
     kernel's further configurations."""
     import torch
@@ -634,6 +655,13 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         floor("two_sites" + tag, "two", table, codes, d, rs, rl, k, c, ms)
         log_floor("two_sites" + tag)
 
+    # K4: the chunk in and out, the slot table in
+    def k4(name, *r_args):
+        kb = based("reverse_slots", *r_args)
+        run(name, lambda: (reverse.reverse_slots(*r_args),),
+            lambda: (reverse.reverse_slots_plain(*r_args),),
+            2 * CHUNK + 8 * R, 20, kb=kb and (lambda: (kb(),)))
+
     if kind != "first":
         tag = "retry chunk" if kind == "retry" else "long-walk chunk"
         for wm in (WIDE_WALK_MAX,) if kind == "retry" else (WALK_MAX,
@@ -641,6 +669,8 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
             for st in ("graph", "gap-size"):
                 w = walk_run(st, wm)
                 k3(f"chain_splice[{tag},{st} records,walk_max={wm}]", w)
+        if kind == "retry":   # the chain reverses the chunk as it came in
+            k4("reverse_slots[retry chunk]", codes, rs, rl)
         log(f"{tag}: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
             f"{int(d.n_sites[0])} sites")
         return res
@@ -656,11 +686,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     x, n_rec = k3("chain_splice", s)
     k3("chain_splice[graph records]", g)
 
-    # K4: the chunk in and out
-    r_args = (x.out, rs, x.out_len)
-    run("reverse_slots", lambda: (reverse.reverse_slots(*r_args),),
-        lambda: (reverse.reverse_slots_plain(*r_args),),
-        2 * CHUNK + 8 * R, 20)
+    k4("reverse_slots", x.out, rs, x.out_len)
     log(f"first chunk: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
         f"{int(d.n_sites[0])} sites, {n_rec} visited `one` records")
     return res
@@ -841,6 +867,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
                            baseline=baseline)
 
     kept, oracle_s, retry = instrument(corrector)
+    engine = corrector.native_engine()  # built beside the kernels
     n, correct_s, launches = drive(args, solid, corrector, sync)
     st = corrector.last_stats
     # upper estimate of the kernels' share: every call costed at the
@@ -858,6 +885,10 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         "bases_per_s": n_bases / correct_s, "kernel_s_est": kernel_s,
         "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
         "rest_s": correct_s - device_s - sum(oracle_s),
+        "host_engine": {"name": type(engine).__name__,
+                        "library": os.path.basename(engine._lib._name),
+                        "threads": engine.threads,
+                        "calls": len(oracle_s)},
         "last_stats": st, "launches": launches}))
     check(n == N_READS, f"wrote {n} records, expected {N_READS}")
     for name, cnt in launches.items():
@@ -915,10 +946,10 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CSRC_DIR",
-                    help="also check and time K2 and K5 as built from this "
-                         "directory's one_sites.cu and two_sites.cu (the "
-                         "thread-per-site K2 and K5: git archive 7db8aa5 "
-                         "br_tpu_torch/csrc)")
+                    help="also check and time K2, K5 and K4 as built from "
+                         "this directory, those whose sources differ from "
+                         "this tree's (the parent commit's csrc: git "
+                         "archive <commit> br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
         import torch
@@ -931,6 +962,7 @@ def main():
         return 1
     try:
         from br_tpu_torch import kernels
+        from br_tpu_torch.native import build as native_build
     except ImportError as e:
         print(f"chip_smoke: the br_tpu_torch package is not beside this "
               f"script: {e}", file=sys.stderr)
@@ -942,21 +974,34 @@ def main():
         toolchain()
         built = {}
 
-        def build():
+        def build_native():
             try:
-                built["s"] = kernels.build_all()
+                t0 = time.perf_counter()
+                built["native"] = native_build.build()
+                built["native_s"] = time.perf_counter() - t0
             except Exception as e:  # reported when the build is joined
                 built["err"] = e
 
-        th = threading.Thread(target=build)
-        th.start()
+        def build_kernels():
+            try:
+                built["s"] = kernels.build_all()
+            except Exception as e:
+                built["err"] = e
+
+        threads = [threading.Thread(target=build_native),
+                   threading.Thread(target=build_kernels)]
+        for th in threads:
+            th.start()
 
         def join_build():
-            th.join()
+            for th in threads:
+                th.join()
             if "err" in built:
-                raise SmokeFailure(f"kernel build failed: {built['err']}")
+                raise SmokeFailure(f"build failed: {built['err']}")
             log(f"build: {len(kernels.KERNELS)} kernels in "
-                f"{built['s']:.1f} s (nvcc in parallel)")
+                f"{built['s']:.1f} s (nvcc in parallel); the native host "
+                f"engine {os.path.basename(built['native'])} in "
+                f"{built['native_s']:.1f} s (g++, beside them)")
             for name, rep in kernels.BUILD_LOG.items():
                 regs = [ln.split(":", 1)[-1].strip()
                         for ln in rep.splitlines()

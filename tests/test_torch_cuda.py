@@ -359,6 +359,19 @@ def test_greedy_sites_stress(dev, seed):
           splice.chain_splice_plain(*x_args))
 
 
+def test_greedy_sites_rewind(dev):
+    """K7's negative consumed count (ROADMAP C2): at ms = 8 the rewind
+    case's three attempts cap by attempt on the card as in the plain
+    version."""
+    table, c, rs, rl, d = _on_card(dev, *tc.greedy_rewind_case())
+    args = (table, c, d.kmers, d.s_pos, d.n_sites, rs, rl, tc.K,
+            tc.MS_REWIND, tc.C)
+    s = greedy.greedy_sites(*args)
+    sp = greedy.greedy_sites_plain(*args)
+    _same(sites.defined(s), sites.defined(sp))
+    assert int((sp.s_cap == CAP_ATTEMPT).sum()) == 3
+
+
 # Adversarial inputs of K2 and K5 (tests/torch_cases.two_stress_case):
 # every two-error scenario planted and selected, ties broken by one
 # one_more or left unbroken, reads ending 0-5 bases after an error, the
@@ -408,3 +421,46 @@ def test_one_two_sites_any_confirm(dev, strategy, confirm):
     _same(sites.defined(s), sites.defined(sp))
     if confirm <= 12:
         assert int((sp.rec_p < BIG).sum()) > 100
+
+
+# K4 on every chunk family and on slot tables the planner never makes:
+# unaligned starts, many short slots in one warp's span, reads that fill
+# their slot, a last slot that runs to CHUNK, reads past their slot, unused
+# slots, codes with bit 2 set; each also from a misaligned view of the
+# codes and on a chunk cut to a length that is no multiple of 16 (the byte
+# path).
+
+REVERSE_LAYOUTS = tc.reverse_layouts(1)
+
+
+def _reverse_on_card(dev, codes, rstart, rlen, variant):
+    c = torch.from_numpy(codes)
+    if variant == "cut":
+        c = c[:-4].contiguous()
+    c = c.to(dev)
+    if variant == "misaligned":
+        buf = torch.empty(c.shape[0] + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = c
+        c = buf[1:]
+        assert c.data_ptr() % 16
+    rs, rl = (torch.from_numpy(x).to(dev) for x in (rstart, rlen))
+    before = kernels.LAUNCHES["reverse_slots"]
+    got = reverse.reverse_slots(c, rs, rl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["reverse_slots"] == before + 1
+    assert torch.equal(got, reverse.reverse_slots_plain(c, rs, rl))
+
+
+@pytest.mark.parametrize("name", tc.FAMILIES)
+def test_reverse_slots_families(dev, cases, name):
+    _g, codes, rstart, rlen = cases[name]
+    rng = np.random.default_rng(len(name))
+    bit2 = (rng.integers(0, 2, codes.shape[0]) << 2).astype(np.uint8)
+    for c in (codes, codes | bit2):
+        _reverse_on_card(dev, c, rstart, rlen, "aligned")
+
+
+@pytest.mark.parametrize("variant", ["aligned", "misaligned", "cut"])
+@pytest.mark.parametrize("layout", list(REVERSE_LAYOUTS))
+def test_reverse_slots_layouts(dev, layout, variant):
+    _reverse_on_card(dev, *REVERSE_LAYOUTS[layout], variant)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import torch_cases as tc
+from br_tpu_torch import codec
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.greedy import greedy_attempt_plain, greedy_sites
 from br_tpu_torch.correct.reference import Greedy
@@ -141,3 +142,69 @@ def test_greedy_refuses_long_search():
         greedy_sites(torch.zeros(1 << 20, dtype=torch.int32),
                      z.to(torch.uint8), z, z[:2048], z[:1], z[:8], z[:8],
                      tc.K, 16, 5)
+
+
+# A negative consumed count (ROADMAP C2): greedy_rewind_case's attempts
+# accept an alignment whose offset rewinds the read by one position; the
+# pass caps the site by attempt (CAP_ATTEMPT, aux[2]) and the read, as
+# br_tpu's does (engine3.py:700-702), and the batch corrector hands the
+# read to the host engine, which rewinds as the reference does.
+
+def _rewind_reads():
+    """greedy_rewind_case()'s genome pieces and reads (codes decoded)."""
+    pieces, codes, rstart, rlen = tc.greedy_rewind_case()
+    return pieces, [tc.BASES[codes[s : s + n]].tobytes()
+                    for s, n in zip(rstart, rlen) if n]
+
+
+def test_greedy_rewind_reaches_a_negative_count():
+    pieces, reads = _rewind_reads()
+    solid = SolidSet.from_sequences(pieces, tc.K)
+    g = Greedy(solid, tc.MS_REWIND, tc.C)
+    for read in reads[:3]:
+        i = 40 + len(tc.REWIND_B)
+        kmer = codec.seq2bit(read[i - tc.K + 1 : i + 1])
+        assert not solid.get(kmer)
+        assert g.correct_error(kmer, read[i:]) == (tc.REWIND_C, -1)
+
+
+def test_greedy_rewind_pass_matches_jax():
+    """The pass at ms = 8 against br_tpu's recording, every aux entry
+    included: three sites capped by attempt, three reads capped."""
+    case = tc.greedy_rewind_case()
+    got = tc.run_port_pass("greedy", case, ms=tc.MS_REWIND)
+    want = tc.load_golden(tc.REWIND_GOLDEN)["greedy_rewind"]
+    tc.assert_matches_recording(got, want, *case[2:])
+    assert np.array_equal(got[3], want[3])
+    assert got[3][2] == 3 and got[2][:3].all() and not got[2][3:].any()
+
+
+@pytest.mark.parametrize("two_side", [True, False])
+def test_greedy_rewind_reads_corrected_on_the_host(two_side):
+    """Through Torch3Corrector (plain versions): the three reads cap on
+    both profiles and the native engine corrects them as br_tpu's oracle
+    does."""
+    from br_tpu.correct import build_methods as j_build_methods
+    from br_tpu.correct import correct_read as j_correct_read
+    from br_tpu.set.solid import SolidSet as JSolidSet
+    from br_tpu_torch.correct.engine3 import Torch3Corrector
+
+    pieces, reads = _rewind_reads()
+    tcor = Torch3Corrector(SolidSet.from_sequences(pieces, tc.K),
+                           ["greedy"], tc.C, tc.MS_REWIND, chunk=tc.CHUNK,
+                           nreads=tc.R, device="cpu", threads=1)
+    got = tcor.correct_batch(reads, two_side)
+    methods = j_build_methods(["greedy"], JSolidSet.from_sequences(pieces,
+                                                                   tc.K),
+                              tc.C, tc.MS_REWIND)
+    assert got == [j_correct_read(r, methods, two_side) for r in reads]
+    assert tcor.last_host == [0, 1, 2], tcor.last_stats
+
+
+@pytest.mark.slow
+def test_greedy_rewind_recording_is_jax_pass_output():
+    """Record br_tpu's pass on the rewind case again (eager JAX, about
+    half a minute on the CPU) and compare with the recording."""
+    want = tc.load_golden(tc.REWIND_GOLDEN)["greedy_rewind"]
+    for a, b in zip(tc.record_greedy_rewind()["greedy_rewind"], want):
+        assert np.array_equal(a, b)

@@ -18,6 +18,7 @@ import br_tpu_torch.correct.engine3, br_tpu_torch.corpus, br_tpu_torch.kernels
 import br_tpu_torch.correct.two, br_tpu_torch.correct.walk
 import br_tpu_torch.correct.greedy, br_tpu_torch.correct.reference
 import br_tpu_torch.correct.alignment
+import br_tpu_torch.native, br_tpu_torch.native.build
 import chip_smoke
 sys.path.insert(0, 'tests')
 import torch_cases  # chip_smoke.long_walk_chunk draws its chunk with it

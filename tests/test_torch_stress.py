@@ -131,6 +131,48 @@ def test_chain_splice_refuses_slot_tables_the_kernel_cannot_stage(R):
             torch.zeros(R, dtype=torch.bool))
 
 
+def _reverse_ref(codes, rstart, rlen):
+    """In-slot reversal position by position (the slot of p: the last
+    with rstart <= p), sources clamped to the chunk, 2-bit codes."""
+    out = codes.copy()
+    n = len(codes)
+    for p in range(n):
+        r = np.searchsorted(rstart, p, side="right") - 1
+        o = p - rstart[r] if r >= 0 else n
+        if r >= 0 and o < rlen[r]:
+            out[p] = codes[min(max(rstart[r] + rlen[r] - 1 - o, 0), n - 1)]
+    return out & 3
+
+
+def test_reverse_layouts_cover_their_patterns():
+    """K4's card layouts (tests/test_torch_cuda.py) hold their patterns,
+    and the plain reversal equals a position-by-position reference on
+    them."""
+    from br_tpu_torch.correct.reverse import reverse_slots_plain
+
+    lay = tc.reverse_layouts(1)
+    for name, (codes, rstart, rlen) in lay.items():
+        got = reverse_slots_plain(*(torch.from_numpy(x)
+                                    for x in (codes, rstart, rlen)))
+        assert np.array_equal(got.numpy(), _reverse_ref(codes, rstart, rlen))
+        assert (codes & 4).any() and np.all(np.diff(rstart) >= 0), name
+    n = tc.CHUNK
+    rs, rl = lay["unaligned"][1:]
+    cap = np.diff(np.append(rs, n))
+    used = rs < n
+    assert rs[0] % 16 and (rl[used] == 0).any() and (~used).any()
+    assert ((rl == cap) & used & (rl > 0)).any()
+    rs = lay["short_slots"][1]
+    assert max(np.searchsorted(rs, w + 512) - np.searchsorted(rs, w)
+               for w in range(0, n, 512)) > 32
+    rs, rl = lay["exact_fill"][1:]
+    used = rs < n
+    assert np.array_equal(rl[used], np.diff(np.append(rs[used], n)))
+    rs, rl = lay["past_slot"][1:]
+    assert (rl[:3] > np.diff(rs[:4])).any() and rs[3] + rl[3] > n
+    assert lay["before_first"][1][0] == 1000
+
+
 # K6 and K7: the adversarial inputs of tests/test_torch_cuda.py hold their
 # patterns through the plain walk and greedy attempts (recorded with
 # torch_cases.record_attempts).  The walk patterns are checked at a small

@@ -30,10 +30,12 @@ recordings also hold the long-walk family at the wide profile
 (walk_max = 2040) under the name ``long_walk_wide``.
 ``golden/torch_two_stress_k13.npz`` holds br_tpu's ``one`` and ``two``
 passes on the two-error stress family (``two_stress_case``; name
-``two_stress`` to record it).
+``two_stress`` to record it).  ``golden/torch_greedy_rewind_k13.npz``
+holds br_tpu's ``greedy`` pass at ms = 8 on ``greedy_rewind_case``, whose
+attempts consume a negative count (name ``greedy_rewind``).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py \
-        [strategy ... two_stress]
+        [strategy ... two_stress greedy_rewind]
 """
 
 from __future__ import annotations
@@ -63,6 +65,11 @@ GOLDEN = golden_path("one")
 TWO_STRESS_GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                                  "torch_two_stress_k13.npz")
 TWO_STRESS_SEED = 1
+#: br_tpu's greedy pass at ms = MS_REWIND on greedy_rewind_case(), under
+#: the name "greedy_rewind".
+REWIND_GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                             "torch_greedy_rewind_k13.npz")
+MS_REWIND = 8
 BASES = np.frombuffer(b"ACTG", np.uint8)
 _RC = bytes.maketrans(b"ACGT", b"TGCA")
 
@@ -227,7 +234,8 @@ def pieces_of(g):
     return g if isinstance(g, list) else [g]
 
 
-def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True):
+def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True,
+                     ms=MS):
     """Run br_tpu's pass of ``strategy`` on every case, eagerly unless
     ``eager`` is False (then it compiles for many minutes)."""
     import contextlib
@@ -238,7 +246,7 @@ def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True):
     from br_tpu.set.solid import SolidSet
 
     kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(K, strategy, C, MS, C, CHUNK, R, **kw)
+    fn = make_pass3_fn(K, strategy, C, ms, C, CHUNK, R, **kw)
     outs = {}
     for name, (g, codes, rstart, rlen) in cases.items():
         # device arrays: eager vmapped code cannot index numpy arrays
@@ -263,7 +271,7 @@ def save_golden(outs, path=GOLDEN):
     np.savez_compressed(path, **arrs)
 
 
-def run_port_pass(strategy, case, walk_max=None, device="cpu"):
+def run_port_pass(strategy, case, walk_max=None, device="cpu", ms=MS):
     """The port's pass of ``strategy`` on one case: numpy (out, out_len,
     cap, aux)."""
     import torch
@@ -273,7 +281,7 @@ def run_port_pass(strategy, case, walk_max=None, device="cpu"):
 
     g, codes, rstart, rlen = case
     kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(K, strategy, C, MS, C, CHUNK, R, **kw)
+    fn = make_pass3_fn(K, strategy, C, ms, C, CHUNK, R, **kw)
     out = fn(SolidSet.from_sequences(pieces_of(g), K).device_words(device),
              *(torch.from_numpy(x).to(device) for x in (codes, rstart,
                                                           rlen)))
@@ -410,6 +418,44 @@ def dense_stress_case(k, seed, chunk=1 << 20, R=512, solid=True):
         words = np.zeros(nwords, np.uint32)
     rstart, rlen = stress_slots(rng, chunk, R)
     return codes, words.view(np.int32), rstart, rlen
+
+
+def reverse_layouts(seed, chunk=CHUNK):
+    """K4's slot tables beyond the planner's (slots at multiples of 32):
+    name -> (codes, rstart, rlen), the codes seeded with bit 2 set at
+    random.  ``unaligned``: random slots from start 37, empty reads, reads
+    that fill their slot, unused slots (rstart = chunk, rlen = 0) after;
+    ``short_slots``: 1,024 slots of 1-23 positions, so one warp's 512
+    positions hold more than 32 slot starts; ``exact_fill``: every read
+    fills its slot, the last runs to the chunk's end; ``past_slot``: reads
+    longer than their slot (sources past it, and past the chunk, clamped);
+    ``before_first``: the first slot starts at 1,000, after the codes
+    before it."""
+    rng = np.random.default_rng(seed)
+
+    def codes():
+        return rng.integers(0, 8, chunk, dtype=np.uint8)
+
+    def padded(rs, rl, R):
+        rstart = np.full(R, chunk, np.int32)
+        rlen = np.zeros(R, np.int32)
+        rstart[:len(rs)], rlen[:len(rl)] = rs, rl
+        return rstart, rlen
+
+    out = {"unaligned": (codes(), *stress_slots(rng, chunk, 64, first=37,
+                                                size=(50, 700))),
+           "short_slots": (codes(), *stress_slots(rng, chunk, 1024, first=5,
+                                                  size=(1, 24)))}
+    cuts = np.sort(rng.choice(np.arange(1, chunk), 30, replace=False))
+    rs = np.concatenate([[0], cuts])
+    out["exact_fill"] = (codes(), *padded(rs, np.diff(rs, append=chunk), 40))
+    rs = np.array([0, 1000, 1040, chunk - 300])
+    out["past_slot"] = (codes(), *padded(rs, [800, 900, 41, 700], 8))
+    rs = np.arange(1000, chunk - 600, 600)
+    out["before_first"] = (codes(), *padded(rs, [int(x) for x in
+                                                 rng.integers(0, 600,
+                                                              len(rs))], 32))
+    return out
 
 
 def splice_len(rs, rend, lo, hi, succ, rec_p, rec_c, rec_s, chunk):
@@ -949,6 +995,41 @@ def load_golden(path=GOLDEN):
                 z[f"{n}/aux"]) for n in names}
 
 
+#: a greedy attempt whose accepted alignment rewinds the read: before B
+#: (k - 1 = 12 bases), read bases A and path C at step 7 align as B
+#: matched, C's six Gs deleted, AAA matched, TTTT inserted; the first
+#: Match pair follows 6 Dels, the trailing run is 4 Ins, so the offset of
+#: reference.py:524-552 is -6 - 4 = -10 and consumed = 9 - 10 = -1
+#: (ROADMAP C2).  The first such step found is step 7, so it needs
+#: ms >= 8.
+REWIND_B, REWIND_A, REWIND_C = b"GAAAGTAAGCCT", b"AAATTTT", b"GGGGGGAAA"
+
+
+def greedy_rewind_case(seed=5, n=3):
+    """``n`` reads whose greedy attempt at ms = MS_REWIND consumes -1
+    positions (each a random start, B, then A where the genome has C,
+    then the genome's random continuation, so that the step-7 k-mers
+    validate), and fuzz reads of a random genome beside them.  Returns
+    (genome pieces, codes, rstart, rlen) at the test geometry."""
+    rng = np.random.default_rng(seed)
+    pieces, reads = [], []
+    for _ in range(n):
+        pre = rng.choice(BASES, 40).tobytes()
+        cont = rng.choice(BASES, 80).tobytes()
+        pieces.append(pre + REWIND_B + REWIND_C + cont)
+        reads.append(pre + REWIND_B + REWIND_A + cont)
+    g = rng.choice(BASES, 3000).tobytes()
+    reads += fuzz_reads(rng, g, 8, 3)
+    return [*pieces, g], *pack(reads, rng=rng)
+
+
+def record_greedy_rewind():
+    """br_tpu's greedy pass at ms = MS_REWIND on greedy_rewind_case()
+    (about half a minute, eagerly)."""
+    return jax_pass_outputs({"greedy_rewind": greedy_rewind_case()},
+                            "greedy", ms=MS_REWIND)
+
+
 def record_two_stress():
     """br_tpu's one and two passes on the two-error stress family."""
     case = {"two_stress": two_stress_case(TWO_STRESS_SEED)}
@@ -959,10 +1040,14 @@ def record_two_stress():
 if __name__ == "__main__":
     import sys
 
-    for st in sys.argv[1:] or STRATEGIES + ("two_stress",):
+    for st in sys.argv[1:] or STRATEGIES + ("two_stress", "greedy_rewind"):
         if st == "two_stress":
             save_golden(record_two_stress(), TWO_STRESS_GOLDEN)
             print("wrote", TWO_STRESS_GOLDEN, flush=True)
+            continue
+        if st == "greedy_rewind":
+            save_golden(record_greedy_rewind(), REWIND_GOLDEN)
+            print("wrote", REWIND_GOLDEN, flush=True)
             continue
         save_golden(record(st), golden_path(st))
         print("wrote", golden_path(st), flush=True)
