@@ -8,9 +8,12 @@ Global flags + one set-construction subcommand:
 
 * ``count``  — load a serialized count file, threshold to a solid set
   (src/main.rs:60-70);
-* ``fasta``  — count the corpus on the host, threshold to a solid set
+* ``fasta``  — count the corpus, threshold to a solid set
   (src/main.rs:72-85); even k is silently rounded down to odd
-  (src/cli.rs:277-279);
+  (src/cli.rs:277-279).  With ``-a`` the count, the threshold and the
+  bitfield stay on the corrector's device (``set/device_build.py``, kernel
+  K8 on the card; the records stream through in batches); a selection
+  method counts on the host (``Counter``, ``Spectrum``), as br_tpu does;
 * ``solid``  — load a membership set from a solid artifact / csv /
   fasta / fastq (src/main.rs:117-145).
 
@@ -21,10 +24,10 @@ reference: ``first-minimum`` | ``rarefaction PERCENT`` |
 ``-c`` names the strategies of the chain, in order, from ``one``,
 ``two``, ``graph``, ``greedy`` and ``gap-size``; without ``-c`` the chain
 is br's default, all five in that order.  ``large-kmer`` (k > 17, ROADMAP
-A5) is refused, and so is any set whose k is above the device path's 15
-(k = 17 is ROADMAP A4): for ``fasta`` before the host counts anything,
-for ``count`` and ``solid`` as soon as the set is loaded.  ``--device`` is
-``cuda`` (default) or ``cpu`` (the kernels' plain PyTorch versions).
+A5) is refused, and so is any set whose k is above the device path's 17:
+for ``fasta`` before anything is counted, for ``count`` and ``solid`` as
+soon as the set is loaded.  ``--device`` is ``cuda`` (default) or ``cpu``
+(the kernels' plain PyTorch versions).
 ``-t`` sets the host threads of the native engine that corrects the
 reads the device does not finish (0: one a core).
 """
@@ -55,6 +58,8 @@ from br_tpu_torch.errors import (
 from br_tpu_torch.io.fasta import open_maybe_compressed, read_records
 from br_tpu_torch.runtime import run_correction, stdio_streams
 from br_tpu_torch.set import SolidSet
+from br_tpu_torch.set.device_build import (
+    BATCH_BASES, DeviceSolidSet, SolidBuilder)
 
 METHOD_CHOICES = ("one", "two", "graph", "greedy", "gap-size")
 
@@ -169,6 +174,9 @@ def build_set(args):
 
     if args.subcommand == "fasta":
         k = round_down_odd(args.kmer_size)
+        if args.abundance is not None:
+            return device_set(args.set_inputs, k, args.abundance,
+                              args.device)
         counter = Counter(k)
         for path in args.set_inputs:
             for _d, seq, _q in read_records(path):
@@ -192,14 +200,33 @@ def build_set(args):
     raise SystemExit(f"unknown subcommand {args.subcommand}")
 
 
+def device_set(paths, k: int, abundance: int, device) -> DeviceSolidSet:
+    """``fasta -a``: the records of ``paths`` streamed in batches of about
+    BATCH_BASES bases into a ``SolidBuilder`` on ``device``, thresholded
+    at ``abundance``; the bitfield stays there."""
+    from br_tpu_torch.correct.engine3 import resolve_device
+
+    builder = SolidBuilder(k, resolve_device(device))
+    batch, n = [], 0
+    for path in paths:
+        for _d, seq, _q in read_records(path):
+            batch.append(seq)
+            n += len(seq)
+            if n >= BATCH_BASES:
+                builder.add(batch)
+                batch, n = [], 0
+    builder.add(batch)
+    return DeviceSolidSet(k, builder.finish(abundance))
+
+
 def refuse_k(k: int) -> bool:
     """Print one error line and return True when the device path cannot
-    take k (an odd k <= 15; k = 17 waits on ROADMAP A4)."""
+    take k (an odd k <= 17; larger k waits on ROADMAP A5)."""
     if 1 <= k <= DEVICE_MAX_K:
         return False
     print(f"error: k={k} is not ported to br_tpu_torch yet: its device "
-          f"path takes an odd k <= {DEVICE_MAX_K} (k = 17 is ROADMAP A4, "
-          "larger k ROADMAP A5)", file=sys.stderr)
+          f"path takes an odd k <= {DEVICE_MAX_K} (larger k is ROADMAP A5)",
+          file=sys.stderr)
     return True
 
 
@@ -222,7 +249,7 @@ def main(argv=None) -> int:
     configure_logging(args.quiet, args.verbosity)
 
     corrections = args.corrections or list(DEFAULT_CORRECTIONS)
-    # before anything is counted: a Counter at k = 17 holds 2^33 bytes
+    # before anything is counted
     if (args.subcommand == "fasta"
             and refuse_k(round_down_odd(args.kmer_size))):
         return 2

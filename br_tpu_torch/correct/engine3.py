@@ -27,6 +27,12 @@ long gap fills fit there, and a read capped because its chunk's sites
 overflowed NS meets fewer neighbours.  Reads capped again are corrected
 on the host by the native engine (``br_tpu_torch.native``), so the output
 is always the reference's.
+
+Odd k up to 15 runs the kernels' 32-bit instantiations, k = 17 their
+64-bit ones (``kernels.width``).  The solid set may be a host ``SolidSet``
+or a ``DeviceSolidSet`` built on the device (``set/device_build.py``):
+then the table stays where it was built, and a host copy of it is made
+only when the native engine first needs one.
 """
 
 from __future__ import annotations
@@ -72,6 +78,16 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def host_set(valid_kmer):
+    """The host ``SolidSet`` of a solid set (a ``DeviceSolidSet`` copies
+    its table once)."""
+    from br_tpu_torch.set.device_build import DeviceSolidSet
+
+    if isinstance(valid_kmer, DeviceSolidSet):
+        return valid_kmer.host()
+    return valid_kmer
 
 
 def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
@@ -141,7 +157,8 @@ class Torch3Corrector:
     ``Tpu3Corrector``): same contract, bit-exact output; capped reads
     retry once on the sibling with the wide walk profile, and impure,
     too-long and still-capped reads are corrected on the host by the
-    native engine, on ``threads`` threads (0: one a core)."""
+    native engine, on ``threads`` threads (0: one a core).
+    ``valid_kmer`` is a ``SolidSet`` or a ``DeviceSolidSet``."""
 
     #: flat positions per chunk
     CHUNK = 1 << 20
@@ -151,11 +168,13 @@ class Torch3Corrector:
     def __init__(self, valid_kmer, corrections, confirm: int,
                  max_search: int, chunk: int | None = None,
                  nreads: int | None = None, device=None, table=None,
-                 walk_max: int = WALK_MAX, threads: int = 0, engine=None):
+                 walk_max: int = WALK_MAX, threads: int = 0, parent=None):
+        from br_tpu_torch.set.device_build import DeviceSolidSet
         from br_tpu_torch.set.solid import SolidSet
 
-        if not isinstance(valid_kmer, SolidSet):
-            raise TypeError("Torch3Corrector needs a br_tpu_torch SolidSet")
+        if not isinstance(valid_kmer, (SolidSet, DeviceSolidSet)):
+            raise TypeError("Torch3Corrector needs a br_tpu_torch SolidSet "
+                            "or DeviceSolidSet")
         dc.check_k(valid_kmer.k)
         self.corrections = [s.lower().replace("_", "-")
                             for s in corrections]
@@ -181,9 +200,10 @@ class Torch3Corrector:
                         for s in set(self.corrections)}
         self._wide = None
         self.threads = threads
-        #: the native host engine, built at first use (the wide sibling
-        #: is given its parent's)
-        self._engine = engine
+        #: the native host engine, built at first use; the wide sibling
+        #: (its ``parent`` set) takes its parent's
+        self._parent = parent
+        self._engine = None
         self.last_stats: dict = {}
         self.last_host: list = []
 
@@ -247,7 +267,7 @@ class Torch3Corrector:
                 self.valid_kmer, self.corrections, self.c, self.ms,
                 chunk=min(self.CHUNK, 1 << 18), nreads=min(self.R, 32),
                 device=self.device, table=self.table,
-                walk_max=WIDE_WALK_MAX, engine=self.native_engine())
+                walk_max=WIDE_WALK_MAX, parent=self)
         return self._wide
 
     # -- the batch interface ---------------------------------------------------
@@ -349,12 +369,15 @@ class Torch3Corrector:
 
     def native_engine(self):
         """The native host engine (built and loaded at first use; a build
-        or load that fails raises: no other host path is taken)."""
+        or load that fails raises: no other host path is taken).  A
+        device-built set is copied to the host here, once."""
+        if self._parent is not None:
+            return self._parent.native_engine()
         if self._engine is None:
             from br_tpu_torch.native import NativeCorrector
 
-            self._engine = NativeCorrector(self.valid_kmer, self.corrections,
-                                           self.c, self.ms,
+            self._engine = NativeCorrector(host_set(self.valid_kmer),
+                                           self.corrections, self.c, self.ms,
                                            threads=self.threads)
         return self._engine
 

@@ -51,8 +51,9 @@ def greedy_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
         NS = s_pos.shape[0]
         out = empty_sites(NS, 1, codes.device)
         kernels.launch(
-            "greedy_sites", codes, table, kmers, s_pos, n_sites, rstart,
-            rlen, codes.shape[0], rstart.shape[0], k, ms, nb, NS, *out)
+            kernels.width("greedy_sites", k), codes, table, kmers, s_pos,
+            n_sites, rstart, rlen, codes.shape[0], rstart.shape[0], k, ms,
+            nb, NS, *out)
         return out
     return greedy_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
                               rlen, k, ms, nb)

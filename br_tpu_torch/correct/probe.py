@@ -9,6 +9,10 @@ masks those positions), the solid bit, the validity mask V, the
 transition mask T; then the site list (position of every transition, in
 order, for the first NS of them) and the reads whose sites overflow NS.
 
+K-mers are int32 for k <= 15 and int64 for k = 17 (the probe index
+``cano >> 1`` then reaches 2^33); the CUDA tensors' launch takes the
+kernel's 64-bit instantiation there.
+
 ``dense_probe`` launches ``csrc/dense_probe.cu`` for CUDA tensors and
 runs ``dense_probe_plain`` for CPU tensors.
 """
@@ -29,7 +33,8 @@ TILE = 4096
 
 
 class Dense(NamedTuple):
-    kmers: torch.Tensor     # (CHUNK,) int32 k-mer ending at each position
+    kmers: torch.Tensor     # (CHUNK,) k-mer ending at each position
+    #                         (int32, int64 at k = 17: dc.kmer_dtype)
     vraw: torch.Tensor      # (CHUNK,) bool solid bit of that k-mer
     V: torch.Tensor         # (CHUNK,) bool vraw inside the read, pin >= k-1
     T: torch.Tensor         # (CHUNK,) bool valid -> invalid transition
@@ -61,7 +66,7 @@ def dense_probe(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
 
 def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
-    kmers = torch.empty(CHUNK, dtype=torch.int32, device=dev)
+    kmers = torch.empty(CHUNK, dtype=dc.kmer_dtype(k), device=dev)
     vraw = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     V = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     T = torch.empty(CHUNK, dtype=torch.bool, device=dev)
@@ -75,13 +80,14 @@ def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
                           device=dev)
     cap_read = scratch[ntiles + 1:].view(torch.uint8)[:R].view(torch.bool)
     kernels.launch(
-        "dense_probe", codes, table, rstart, rlen, CHUNK, R, k, NS, kmers,
-        vraw, V, T, s_pos, cap_read, n_sites, scratch, scratch[ntiles:])
+        kernels.width("dense_probe", k), codes, table, rstart, rlen, CHUNK,
+        R, k, NS, kmers, vraw, V, T, s_pos, cap_read, n_sites, scratch,
+        scratch[ntiles:])
     return Dense(kmers, vraw, V, T, s_pos, n_sites, cap_read)
 
 
 def dense_probe_plain(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
-    """The same function in plain PyTorch ops (int64 k-mers)."""
+    """The same function in plain PyTorch ops (int64 k-mer math)."""
     CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
     pos = torch.arange(CHUNK, device=dev)
     rs, rl = rstart.long(), rlen.long()
@@ -110,4 +116,5 @@ def dense_probe_plain(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     cap_read = torch.zeros(R, dtype=torch.bool, device=dev)
     cap_read[rid[T & (q >= NS)]] = True
     n_sites = (q[-1:] + 1).int()
-    return Dense(km.int(), vraw, V, T, s_pos, n_sites, cap_read)
+    return Dense(km.to(dc.kmer_dtype(k)), vraw, V, T, s_pos, n_sites,
+                 cap_read)

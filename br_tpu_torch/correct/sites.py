@@ -14,7 +14,9 @@ plain side is ``run_sites_plain``, which every site module's plain
 version drives with its own attempt.
 
 K2 ``one_sites`` (the One attempt, :300) launches ``csrc/one_sites.cu``
-for CUDA tensors and runs ``one_sites_plain`` for CPU tensors.
+for CUDA tensors and runs ``one_sites_plain`` for CPU tensors.  Every
+site kernel takes K1's k-mers (int32 up to k = 15, int64 at k = 17) and
+launches its 64-bit instantiation at k = 17.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     CHUNK = codes.shape[0]
     kernels.check(codes, "codes", torch.uint8, dev)
     kernels.check(table, "table", torch.int32, dev)
-    kernels.check(kmers, "kmers", torch.int32, dev, CHUNK)
+    kernels.check(kmers, "kmers", dc.kmer_dtype(k), dev, CHUNK)
     kernels.check(s_pos, "s_pos", torch.int32, dev)
     kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
     kernels.check(rstart, "rstart", torch.int32, dev)
@@ -116,8 +118,8 @@ def _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     NS = s_pos.shape[0]
     out = empty_sites(NS, 1, codes.device)
     kernels.launch(
-        "one_sites", codes, table, kmers, s_pos, n_sites, rstart, rlen,
-        codes.shape[0], rstart.shape[0], k, c, NS, *out)
+        kernels.width("one_sites", k), codes, table, kmers, s_pos, n_sites,
+        rstart, rlen, codes.shape[0], rstart.shape[0], k, c, NS, *out)
     return out
 
 
@@ -130,20 +132,26 @@ def window(codes3, CHUNK: int):
     return code_at
 
 
+def _bases(km):
+    """The four bases as a (4, 1) column beside km's lanes."""
+    return torch.arange(4, dtype=torch.int64, device=km.device)[:, None]
+
+
 def alt_last(probe, km):
-    """(count, replacement) of the alternative last bases of km."""
+    """(count, replacement) of the alternative last bases of km (the four
+    probes in one batch)."""
     base = (km >> 2) << 2
-    oks = [probe(base ^ a) for a in range(4)]
-    n = sum(o.long() for o in oks)
-    return n, base ^ sum(a * oks[a].long() for a in range(4))
+    a = _bases(km)
+    oks = probe(base[None] ^ a).long()
+    return oks.sum(0), base ^ (a * oks).sum(0)
 
 
 def alt_next(probe, km, k: int):
-    """(count, sum of the bases) of the solid successors of km."""
-    oks = [probe(dc.add_nuc(km, torch.full_like(km, a), k))
-           for a in range(4)]
-    n = sum(o.long() for o in oks)
-    return n, sum(a * oks[a].long() for a in range(4))
+    """(count, sum of the bases) of the solid successors of km (the four
+    probes in one batch)."""
+    a = _bases(km)
+    oks = probe(dc.add_nuc(km[None], a, k)).long()
+    return oks.sum(0), (a * oks).sum(0)
 
 
 def one_attempt_plain(probe, code_at, k: int, c: int, ii, corr, lf):

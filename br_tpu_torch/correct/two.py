@@ -45,8 +45,9 @@ def two_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
         NS = s_pos.shape[0]
         out = empty_sites(NS, 1, codes.device)
         kernels.launch(
-            "two_sites", codes, table, kmers, s_pos, n_sites, rstart, rlen,
-            codes.shape[0], rstart.shape[0], k, c, NS, *out)
+            kernels.width("two_sites", k), codes, table, kmers, s_pos,
+            n_sites, rstart, rlen, codes.shape[0], rstart.shape[0], k, c, NS,
+            *out)
         return out
     return two_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
                            rlen, k, c)

@@ -58,9 +58,9 @@ def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen,
         NS = s_pos.shape[0]
         out = empty_sites(NS, wp.ew, codes.device)
         kernels.launch(
-            "walk_sites", codes, table, kmers, V, s_pos, n_sites, rstart,
-            rlen, codes.shape[0], rstart.shape[0], k, c, NS, mode, walk_max,
-            wp.ew, *out)
+            kernels.width("walk_sites", k), codes, table, kmers, V, s_pos,
+            n_sites, rstart, rlen, codes.shape[0], rstart.shape[0], k, c, NS,
+            mode, walk_max, wp.ew, *out)
         return out
     return walk_sites_plain(table, codes, kmers, V, s_pos, n_sites, rstart,
                             rlen, k, c, strategy, walk_max)

@@ -6,7 +6,9 @@ matching the reference's default ``count_u8`` feature, Cargo.toml:54).
 
 Host path: numpy unbuffered scatter-add in a wide dtype, then saturating
 downcast.  This is the port's own copy of the JAX package's host counter;
-the device count (ROADMAP B10) is not ported yet.
+the CLI's ``fasta -a`` builds the solid set on the device instead
+(``br_tpu_torch.set.device_build``, ROADMAP B8), bit for bit this
+counter's ``to_solid``.
 
 Count-file format [inferred — no pcon source or asset available to verify]:
 ``gzip(k: u8 || counts bytes)``, mirroring the verified solid format.

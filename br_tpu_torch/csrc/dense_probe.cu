@@ -43,6 +43,13 @@
 //    waits on tiles already running.
 // The wrapper keeps one zero fill: the look-back states, the ticket and
 // cap_read (a read without a site of rank >= NS is written by no tile).
+//
+// Both register widths from one source: br_dense_probe (uint32_t k-mers
+// written as int32, k <= 15) and br_dense_probe64 (uint64_t, int64, for
+// k = 17), the same code.  At k = 17 a run's k-1 = 16 halo codes are the
+// previous lane's whole run, and lane 0's tile-edge k-mer (ending at
+// p0-1) needs one code more, which it loads; the k-mers are stored as
+// eight 16-byte stores a thread (16 B a position, 25 MB at 2^20).
 #include "common.cuh"
 
 #define K1_THREADS 256
@@ -86,11 +93,12 @@ __device__ __forceinline__ uint4 k1_bytes(uint32_t m) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+template <class Reg>
 __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
     const uint8_t* __restrict__ codes, const uint32_t* __restrict__ table,
     const int32_t* __restrict__ rstart, const int32_t* __restrict__ rlen,
     int CHUNK, int R, int k, int NS,
-    int32_t* __restrict__ kmers, uint8_t* __restrict__ vraw,
+    void* __restrict__ kmers_out, uint8_t* __restrict__ vraw,
     uint8_t* __restrict__ V, uint8_t* __restrict__ T,
     int32_t* __restrict__ s_pos, uint8_t* __restrict__ cap_read,
     int32_t* __restrict__ n_sites,
@@ -111,7 +119,7 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   const int tile = sh_tile;
   const int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
   const int p0 = tile * K1_TILE + tid * K1_RUN;
-  const uint32_t kmask = br_kmask(k);
+  const Reg kmask = br_kmask<Reg>(k);
   const bool vec = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
 
   // the run's codes and the 16 before it (the previous lane's run)
@@ -123,11 +131,15 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
 
   // rolling k-mers: the predecessor's, then one per position; all probes
   // issued together
-  uint32_t km = 0;
+  Reg km = 0;
+  if constexpr (sizeof(Reg) == 8) {  // k = 17: the 17th code of km_prev
+    const int q = p0 - K1_RUN - 1;
+    if (lane == 0 && q >= 0 && q < CHUNK) km = codes[q] & 3u;
+  }
 #pragma unroll
   for (int i = 0; i < K1_RUN; ++i) km = ((km << 2) | k1_code(prev, i)) & kmask;
-  const uint32_t km_prev = km;
-  uint32_t kms[K1_RUN];
+  const Reg km_prev = km;
+  Reg kms[K1_RUN];
 #pragma unroll
   for (int i = 0; i < K1_RUN; ++i) {
     km = ((km << 2) | k1_code(cur, i)) & kmask;
@@ -162,21 +174,38 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   const uint32_t vrawm = fullm & hit;
 
   if (p0 + K1_RUN <= CHUNK) {
-    int4* kp = reinterpret_cast<int4*>(kmers + p0);
+    if constexpr (sizeof(Reg) == 8) {
+      longlong2* kp =
+          reinterpret_cast<longlong2*>(static_cast<int64_t*>(kmers_out) + p0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = 4 * j;
-      kp[j] = make_int4((fullm >> b) & 1u ? (int)kms[b] : 0,
-                        (fullm >> (b + 1)) & 1u ? (int)kms[b + 1] : 0,
-                        (fullm >> (b + 2)) & 1u ? (int)kms[b + 2] : 0,
-                        (fullm >> (b + 3)) & 1u ? (int)kms[b + 3] : 0);
+      for (int j = 0; j < 8; ++j) {
+        const int b = 2 * j;
+        kp[j] = make_longlong2(
+            (fullm >> b) & 1u ? (long long)kms[b] : 0,
+            (fullm >> (b + 1)) & 1u ? (long long)kms[b + 1] : 0);
+      }
+    } else {
+      int4* kp = reinterpret_cast<int4*>(static_cast<int32_t*>(kmers_out) +
+                                         p0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int b = 4 * j;
+        kp[j] = make_int4((fullm >> b) & 1u ? (int)kms[b] : 0,
+                          (fullm >> (b + 1)) & 1u ? (int)kms[b + 1] : 0,
+                          (fullm >> (b + 2)) & 1u ? (int)kms[b + 2] : 0,
+                          (fullm >> (b + 3)) & 1u ? (int)kms[b + 3] : 0);
+      }
     }
     *reinterpret_cast<uint4*>(vraw + p0) = k1_bytes(vrawm);
     *reinterpret_cast<uint4*>(V + p0) = k1_bytes(vm);
     *reinterpret_cast<uint4*>(T + p0) = k1_bytes(tm);
   } else {
     for (int i = 0; i < K1_RUN && p0 + i < CHUNK; ++i) {
-      kmers[p0 + i] = (fullm >> i) & 1u ? (int32_t)kms[i] : 0;
+      const Reg v = (fullm >> i) & 1u ? kms[i] : Reg(0);
+      if constexpr (sizeof(Reg) == 8)
+        static_cast<int64_t*>(kmers_out)[p0 + i] = (int64_t)v;
+      else
+        static_cast<int32_t*>(kmers_out)[p0 + i] = (int32_t)v;
       vraw[p0 + i] = (vrawm >> i) & 1u;
       V[p0 + i] = (vm >> i) & 1u;
       T[p0 + i] = (tm >> i) & 1u;
@@ -263,17 +292,34 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   }
 }
 
-extern "C" int br_dense_probe(
+template <class Reg>
+static int dense_probe_launch(
     const void* codes, const void* table, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int NS, void* kmers,
     void* vraw, void* V, void* T, void* s_pos, void* cap_read,
     void* n_sites, void* tile_state, void* ticket, void* stream) {
   int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
-  dense_probe_kernel<<<ntiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
+  dense_probe_kernel<Reg><<<ntiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint32_t*)table,
-      (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, NS,
-      (int32_t*)kmers, (uint8_t*)vraw, (uint8_t*)V, (uint8_t*)T,
-      (int32_t*)s_pos, (uint8_t*)cap_read, (int32_t*)n_sites,
+      (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, NS, kmers,
+      (uint8_t*)vraw, (uint8_t*)V, (uint8_t*)T, (int32_t*)s_pos,
+      (uint8_t*)cap_read, (int32_t*)n_sites,
       (unsigned long long*)tile_state, (unsigned int*)ticket);
   return (int)cudaGetLastError();
+}
+
+#define K1_ARGS                                                           \
+  const void *codes, const void *table, const void *rstart,               \
+      const void *rlen, int CHUNK, int R, int k, int NS, void *kmers,     \
+      void *vraw, void *V, void *T, void *s_pos, void *cap_read,          \
+      void *n_sites, void *tile_state, void *ticket, void *stream
+#define K1_PASS                                                           \
+  codes, table, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V, T, s_pos,  \
+      cap_read, n_sites, tile_state, ticket, stream
+
+extern "C" int br_dense_probe(K1_ARGS) {
+  return dense_probe_launch<uint32_t>(K1_PASS);
+}
+extern "C" int br_dense_probe64(K1_ARGS) {
+  return dense_probe_launch<uint64_t>(K1_PASS);
 }

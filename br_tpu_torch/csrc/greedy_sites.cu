@@ -28,6 +28,21 @@
 // have no counterpart.  JAX refuses ms + 1 > 16 (one emit word,
 // :726-727); so does the wrapper.
 //
+// Both register widths from one source: br_greedy_sites (uint32_t,
+// k <= 15) and br_greedy_sites64 (uint64_t, k = 17).  At k = 17 the DP
+// has Lc + 1 = ms + 18 columns, 33 at ms = 15, one more than a warp has
+// lanes: there lane j owns column j + 1 (COL0 = 1), and column 0, whose
+// cells are closed-form (the Ins run from the start), is computed by lane
+// 0 where it needs its left neighbour, and written to the traceback table
+// by lane 0 as the wavefront passes its rows.  Written instead by a loop
+// of all lanes before the wavefront, `for (r = lane; r <= Lr; r += 32)`,
+// the stores faulted: a build that printed them showed rows r = lane + 96
+// at Lr = 22 (nvcc 12.9 ran the loop's four-times-unrolled body where its
+// trip count was 1); the same loop with Lr broadcast from lane 0 by a
+// shuffle ran right.  So no loop here is bounded by a lane's own Lr or
+// Lc: the wavefront's step count is lane 0's too.  At k <= 15
+// (Lc + 1 <= 30) lane j owns column j, as before.
+//
 // Bound on the H100: a chain of dependent steps (the walk's ms probe
 // rounds, the DP's cells, a traceback of up to ~58 cells) per attempt,
 // not bytes.  The warp shortens each:
@@ -35,13 +50,14 @@
 //    holds wks[p] and path[p], and the revisit test is one vote; the walk
 //    stops at its first failure, after which no step can decide;
 //  - the DP runs as an anti-diagonal wavefront, lane j owning column j
-//    (Lc + 1 <= 31 lanes): S, I, D and the S code of the left column come
+//    (Lc + 1 <= 30 lanes at k <= 15; column j + 1 at k = 17, below):
+//    S, I, D and the S code of the left column come
 //    by __shfl_up_sync, the diagonal S is the left lane's previous one;
 //    Lr + Lc + 1 steps in place of Lr * Lc serial cells, and only the rows
 //    and columns the deciding steps can reach (it < min(fail_step,
 //    rem + 1));
 //  - the traceback codes go to the warp's slice of shared memory
-//    (<= 1.8 KB), not local memory;
+//    (<= 1.8 KB, 2 KB at k = 17), not local memory;
 //  - lanes it = 0..ms-1 trace back from cell (k-1+it, k-1+it+2) at once,
 //    each in registers only: a delay line of the last k-1 ops holds back
 //    the before-part, so the first Match pair past it and the offset come
@@ -58,10 +74,20 @@
 #define GAP_OPEN (-1)
 #define GAP_EXT (-1)
 #define NEG_SCORE (-(1 << 14))
-// ms + 1 <= 16 and k <= 15
+// ms + 1 <= 16, and k - 1 <= KM1 = 14 (uint32_t) or 16 (uint64_t)
 #define MAX_MS 15
-#define MAX_LR (14 + MAX_MS - 1)
-#define MAX_LC (14 + MAX_MS + 1)
+template <class T>
+__host__ __device__ constexpr int greedy_km1() {
+  return sizeof(T) == 8 ? 16 : 14;
+}
+template <class T>
+__host__ __device__ constexpr int greedy_max_lr() {
+  return greedy_km1<T>() + MAX_MS - 1;
+}
+template <class T>
+__host__ __device__ constexpr int greedy_max_lc() {
+  return greedy_km1<T>() + MAX_MS + 1;
+}
 
 // traceback codes of a cell: S layer in bits 0-2, I in 3-5, D in 6-8
 #define TB(s, i, d) ((uint16_t)((s) | ((i) << 3) | ((d) << 6)))
@@ -70,7 +96,10 @@
 #define TB_D(x) (((x) >> 6) & 7)
 
 // traceback codes of one warp's DP: (MAX_LR+1) x (MAX_LC+1), padded
-#define TB_WORDS ((MAX_LR + 1) * (MAX_LC + 1) + 5)
+template <class T>
+__host__ __device__ constexpr int greedy_tb_words() {
+  return (greedy_max_lr<T>() + 1) * (greedy_max_lc<T>() + 1) + 5;
+}
 
 // The offset of step it's alignment, by the lane that traces it back from
 // (r, j) through tb (NC columns): whether two consecutive Matches follow
@@ -82,16 +111,26 @@
 // and the last such Match pair found is the first one forward.  offset
 // sums the indels past the before part up to that pair; corr, the
 // indels that end the alignment, is the leading run of the backward ops.
+// The delay line is of type T: 2(k-1) = 32 bits at k = 17.
+template <class T>
 __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
                                               int k, int r, int j,
                                               int* off) {
   const int dl = k - 1;
-  const uint32_t dmask = (1u << (2 * dl)) - 1u;
-  uint32_t line = 0;
+  const T dmask = (T(1) << (2 * dl)) - T(1);
+  T line = 0;
   int nline = 0, prev = -1, sum = 0, sum_at = 0, corr = 0;
   bool found = false, lead = true;
+  // every op moves up or left (r + j falls), so the walk ends if it
+  // stays in the table
+#define GREEDY_TB_CHECK()                                                 \
+  BR_CHECK(r >= 0 && j >= 0 && j < NC &&                                 \
+           r * NC + j < greedy_tb_words<T>() - 5)
+  GREEDY_TB_CHECK();
   int layer = TB_S(tb[r * NC + j]);
   while (layer != TB_START) {
+    BR_CHECK(layer < TB_START);
+    GREEDY_TB_CHECK();
     const int op = layer;
     if (lead) {
       if (op == OP_INS) ++corr;
@@ -102,7 +141,7 @@ __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
     if (dl > 0) {
       past = nline == dl ? (int)((line >> (2 * (dl - 1))) & 3u) : -1;
       if (nline < dl) ++nline;
-      line = ((line << 2) | (uint32_t)op) & dmask;
+      line = ((line << 2) | (T)op) & dmask;
     }
     if (past >= 0) {
       if (past == OP_MATCH && prev == OP_MATCH) {
@@ -121,32 +160,35 @@ __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
     } else {
       --r;
       --j;
+      GREEDY_TB_CHECK();
       layer = TB_S(tb[r * NC + j]);
     }
   }
+#undef GREEDY_TB_CHECK
   *off = (sum - sum_at) - corr;
   return found;
 }
 
-__device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
-                                                    int nb, int lane,
-                                                    uint16_t* tb, int i,
-                                                    uint32_t reg,
-                                                    uint32_t corr, int lenf,
-                                                    int32_t* erow) {
+template <class T>
+__device__ __forceinline__ BrAttempt<T> greedy_attempt(
+    const BrSites& a, int ms, int nb, int lane, uint16_t* tb, int i, T reg,
+    T corr, int lenf, int32_t* erow) {
+  // the column of lane 0: 1 where Lc + 1 can pass 32 (k = 17)
+  constexpr int COL0 = sizeof(T) == 8 ? 1 : 0;
   const int k = a.k;
-  const uint32_t kmask = br_kmask(k);
+  const T kmask = br_kmask<T>(k);
   const int rem = lenf - i;
-  BrAttempt res = {false, false, 0u, 0, 0};
+  BrAttempt<T> res = {false, false, T(0), 0, 0};
 
   // the ms-step walk: lane p holds wks[p] and path[p]
-  uint32_t my_wk = corr, my_path = corr & 3u, wk = corr;
+  T my_wk = corr, wk = corr;
+  uint32_t my_path = (uint32_t)corr & 3u;
   int fail_step = ms;
   for (int s = 0; s < ms; ++s) {
     uint32_t sa;
     const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
     const bool bf = ns != 1;
-    const uint32_t nxt = bf ? wk : br_add(wk, sa, kmask);
+    const T nxt = bf ? wk : br_add(wk, sa, kmask);
     const bool revisit =
         __any_sync(BR_FULL, lane <= s && my_wk == nxt);
     if (lane == s + 1) {
@@ -166,38 +208,54 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
   // the DP of r_full (rows) against c_full (columns), rows 0..Lr and
   // columns 0..Lc as far as the deciding steps reach
   const int Lr = k - 1 + it_max, Lc = k + 1 + it_max, NC = Lc + 1;
-  const uint32_t pre = reg >> 2;
-  // lane t: x[t]; lane j: y[j-1], the base of its column
+  const T pre = reg >> 2;
+  // lane t: x[t]; lane j - COL0: y[j-1], the base of its column j
+  const int j = lane + COL0;
   const uint32_t xl = lane < k - 1
-                          ? (pre >> (2 * (k - 2 - lane))) & 3u
+                          ? (uint32_t)(pre >> (2 * (k - 2 - lane))) & 3u
                           : code_at(a.codes, i + lane - (k - 1), a.CHUNK);
-  const uint32_t pth = __shfl_sync(BR_FULL, my_path, (lane - k) & 31);
-  const uint32_t yj = lane == 0 ? 0u
-                      : lane - 1 < k - 1
-                          ? (pre >> (2 * (k - 2 - (lane - 1)))) & 3u
+  const uint32_t pth = __shfl_sync(BR_FULL, my_path, (j - k) & 31);
+  const uint32_t yj = j == 0 ? 0u
+                      : j - 1 < k - 1
+                          ? (uint32_t)(pre >> (2 * (k - 2 - (j - 1)))) & 3u
                           : pth;
   int S = 0, Sold = 0, I = NEG_SCORE, D = NEG_SCORE, sb = TB_START;
   // the step count comes from lane 0 and the loop stays rolled: written
   // as `d <= Lr + Lc`, nvcc (12.9, sm_90a) cut this loop after 11 steps
-  const int steps = __shfl_sync(BR_FULL, Lr + Lc + 1, 0);
+  // (a loop bound by a lane's own Lr miscompiles, see the header)
+  const int steps = __shfl_sync(BR_FULL, Lr + Lc + 1 - COL0, 0);
 #pragma unroll 1
   for (int d = 0; d < steps; ++d) {
     const int r = d - lane;
-    const int lS = __shfl_up_sync(BR_FULL, S, 1);
-    const int lSold = __shfl_up_sync(BR_FULL, Sold, 1);
-    const int lD = __shfl_up_sync(BR_FULL, D, 1);
-    const int lsb = __shfl_up_sync(BR_FULL, sb, 1);
+    int lS = __shfl_up_sync(BR_FULL, S, 1);
+    int lSold = __shfl_up_sync(BR_FULL, Sold, 1);
+    int lD = __shfl_up_sync(BR_FULL, D, 1);
+    int lsb = __shfl_up_sync(BR_FULL, sb, 1);
+    if constexpr (COL0 == 1) {
+      if (lane == 0) {  // column 0 (Ins from the start): its cell at row
+        // r, and the left neighbour of column 1 at rows r and r-1
+        BR_CHECK(r > Lr || r * NC < greedy_tb_words<T>() - 5);
+        if (r <= Lr)
+          tb[r * NC] = r == 0 ? TB(TB_START, TB_START, TB_START)
+                              : TB(OP_INS, r > 1 ? OP_INS : TB_START,
+                                   TB_START);
+        lS = r == 0 ? 0 : GAP_OPEN + GAP_EXT * r;
+        lSold = r <= 1 ? 0 : GAP_OPEN + GAP_EXT * (r - 1);
+        lD = NEG_SCORE;
+        lsb = r == 0 ? TB_START : OP_INS;
+      }
+    }
     const uint32_t xr = __shfl_sync(BR_FULL, xl, (r - 1) & 31);
-    if (lane <= Lc && r >= 0 && r <= Lr) {
+    if (j <= Lc && r >= 0 && r <= Lr) {
       int nS, nI, nD, nsb;
       uint16_t code;
       if (r == 0) {  // the first row: Del from the start
-        nS = lane == 0 ? 0 : GAP_OPEN + GAP_EXT * lane;
+        nS = j == 0 ? 0 : GAP_OPEN + GAP_EXT * j;
         nI = NEG_SCORE;
         nD = NEG_SCORE;
-        nsb = lane == 0 ? TB_START : OP_DEL;
-        code = TB(nsb, TB_START, lane > 1 ? OP_DEL : TB_START);
-      } else if (lane == 0) {  // the first column: Ins from the start
+        nsb = j == 0 ? TB_START : OP_DEL;
+        code = TB(nsb, TB_START, j > 1 ? OP_DEL : TB_START);
+      } else if (j == 0) {  // the first column: Ins from the start
         nS = GAP_OPEN + GAP_EXT * r;
         nI = nS;
         nD = NEG_SCORE;
@@ -221,7 +279,8 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
         nS = best;
         code = TB(nsb, ib, db);
       }
-      tb[r * NC + lane] = code;
+      BR_CHECK(r * NC + j < greedy_tb_words<T>() - 5);
+      tb[r * NC + j] = code;
       Sold = S;
       S = nS;
       I = nI;
@@ -232,13 +291,13 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
   __syncwarp();
 
   // every deciding step at once: lane it traces back and validates
-  const uint32_t wnext = __shfl_sync(BR_FULL, my_wk, (lane + 1) & 31);
+  const T wnext = __shfl_sync(BR_FULL, my_wk, (lane + 1) & 31);
   bool good = false;
   int off = 0;
   if (lane <= it_max &&
-      greedy_offset(tb, NC, k, k - 1 + lane, k + 1 + lane, &off)) {
+      greedy_offset<T>(tb, NC, k, k - 1 + lane, k + 1 + lane, &off)) {
     bool okc = rem - lane >= nb;
-    uint32_t km = wnext;
+    T km = wnext;
 #pragma unroll 4
     for (int t = 0; t < nb; ++t) {
       km = br_add(km, code_at(a.codes, i + lane + t, a.CHUNK), kmask);
@@ -251,7 +310,7 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
   if (!gm) return res;
   const int it_sel = __ffs(gm) - 1;
   const int o = __shfl_sync(BR_FULL, off, it_sel);
-  const uint32_t nk = __shfl_sync(BR_FULL, my_wk, it_sel + 1);
+  const T nk = __shfl_sync(BR_FULL, my_wk, it_sel + 1);
   const int cnt = it_sel + 2;
   const int raw = cnt + o;
   const uint32_t emit =
@@ -265,21 +324,23 @@ __device__ __forceinline__ BrAttempt greedy_attempt(const BrSites& a, int ms,
   return res;
 }
 
+template <class T>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     greedy_sites_kernel(BrSites a, int ms, int nb) {
-  __shared__ uint16_t sh_tb[BR_WARP_SITES][TB_WORDS];
+  __shared__ uint16_t sh_tb[BR_WARP_SITES][greedy_tb_words<T>()];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
   uint16_t* tb = sh_tb[warp];
-  auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
-                     int32_t* erow) {
-    return greedy_attempt(a, ms, nb, lane, tb, i, reg, corr, lenf, erow);
+  auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
+    return greedy_attempt<T>(a, ms, nb, lane, tb, i, reg, corr, lenf,
+                             erow);
   };
-  br_site_chain_warp(a, sid, lane, attempt);
+  br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-extern "C" int br_greedy_sites(
+template <class T>
+static int greedy_sites_launch(
     const void* codes, const void* table, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int ms, int nb, int NS,
@@ -288,8 +349,25 @@ extern "C" int br_greedy_sites(
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
-  greedy_sites_kernel<<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                        BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(a, ms,
-                                                                   nb);
+  greedy_sites_kernel<T><<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                           BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(
+      a, ms, nb);
   return (int)cudaGetLastError();
+}
+
+#define GREEDY_ARGS                                                       \
+  const void *codes, const void *table, const void *kmers,                \
+      const void *s_pos, const void *n_sites, const void *rstart,         \
+      const void *rlen, int CHUNK, int R, int k, int ms, int nb, int NS,  \
+      void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
+      void *rec_e, void *stream
+#define GREEDY_PASS                                                       \
+  codes, table, kmers, s_pos, n_sites, rstart, rlen, CHUNK, R, k, ms, nb, \
+      NS, succ, s_cap, rec_p, rec_c, rec_s, rec_e, stream
+
+extern "C" int br_greedy_sites(GREEDY_ARGS) {
+  return greedy_sites_launch<uint32_t>(GREEDY_PASS);
+}
+extern "C" int br_greedy_sites64(GREEDY_ARGS) {
+  return greedy_sites_launch<uint64_t>(GREEDY_PASS);
 }

@@ -28,6 +28,10 @@
 // after the stop position inside the read (a lower bound over s_pos, in
 // place of the JAX nt table).
 //
+// Every function on a k-mer is a template on its register type T
+// (uint32_t for k <= 15, uint64_t for k = 17); each site kernel's source
+// instantiates both and has one entry point for each.
+//
 // Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
 // count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
 // 16 2-bit bases per 32-bit word, LSB first.  An attempt writes its emit
@@ -62,11 +66,12 @@ __device__ __forceinline__ uint32_t code_at(const uint8_t* codes, int i,
   return codes[i] & 3u;
 }
 
-// Everything a site kernel reads and writes.
+// Everything a site kernel reads and writes.  kmers is K1's output:
+// int32 k-mers for k <= 15, int64 for k = 17 (br_kmer_at).
 struct BrSites {
   const uint8_t* codes;
   const uint32_t* table;
-  const int32_t* kmers;
+  const void* kmers;
   const int32_t* s_pos;
   const int32_t* n_sites;
   const int32_t* rstart;
@@ -81,13 +86,34 @@ struct BrSites {
 };
 
 // One attempt's result (AttemptOut3, engine3.py:220).
+template <class T>
 struct BrAttempt {
   bool ok;            // the repair applies
   bool cap;           // an engineered bound was hit: the site caps
-  uint32_t new_kmer;  // the register after the emitted bases
+  T new_kmer;         // the register after the emitted bases
   int consumed;       // input positions skipped
   int cnt;            // emitted bases
 };
+
+// K1's k-mer at position p in the register type.
+template <class T>
+__device__ __forceinline__ T br_kmer_at(const BrSites& a, int p) {
+  if constexpr (sizeof(T) == 8)
+    return (T)static_cast<const int64_t*>(a.kmers)[p];
+  else
+    return (T)static_cast<const int32_t*>(a.kmers)[p];
+}
+
+// codes a register holds (16 or 32), and the window lag of the One
+// attempt: the most codes before a probe's last one, k - 1 <= 14 or 16
+template <class T>
+__host__ __device__ constexpr int br_reg_codes() {
+  return 4 * (int)sizeof(T);
+}
+template <class T>
+__host__ __device__ constexpr int br_lag() {
+  return sizeof(T) == 8 ? 16 : 14;
+}
 
 // ---------------------------------------------------------------------
 // The warp-per-site chain.  Every lane of the warp calls these with the
@@ -97,42 +123,45 @@ struct BrAttempt {
 // Alternatives for the last base of km (mod.rs:114-116), lane a < 4
 // probing base ^ a: returns how many of base ^ a are solid; *repl = base
 // ^ (sum of those a), the one alternative when the count is 1.
+template <class T>
 __device__ __forceinline__ int br_alt_last_warp(
-    const uint32_t* __restrict__ table, uint32_t km, int k, int lane,
-    uint32_t* repl) {
-  const uint32_t base = (km >> 2) << 2;
-  const bool v = lane < 4 && br_probe(table, base ^ (uint32_t)lane, k);
+    const uint32_t* __restrict__ table, T km, int k, int lane, T* repl) {
+  const T base = (km >> 2) << 2;
+  const bool v = lane < 4 && br_probe(table, base ^ (T)lane, k);
   const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
-  *repl = base ^ (((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3));
+  *repl = base ^ (T)(((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3));
   return __popc(m);
 }
 
 // Successors of km (mod.rs:118-128), lane a < 4 probing add(km, a):
 // returns how many are solid; *code = the sum of those a, the one
 // successor's base when the count is 1.
+template <class T>
 __device__ __forceinline__ int br_alt_next_warp(
-    const uint32_t* __restrict__ table, uint32_t km, int k, uint32_t kmask,
-    int lane, uint32_t* code) {
+    const uint32_t* __restrict__ table, T km, int k, T kmask, int lane,
+    uint32_t* code) {
   const bool v = lane < 4 && br_probe(table, br_add(km, lane, kmask), k);
   const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
   *code = ((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3);
   return __popc(m);
 }
 
-// Lane m < 15: the register km after the m+1 adds of code_at(from), ...,
+// Lane m < NB-1 (NB = br_reg_codes<T>(): 15 lanes for uint32_t, 31 for
+// uint64_t): the register km after the m+1 adds of code_at(from), ...,
 // code_at(from + m), by an inclusive shuffle scan of the lanes' codes
 // (each lane loads one).  Other lanes get a value nobody may use.
-__device__ __forceinline__ uint32_t br_roll_warp(const uint8_t* codes,
-                                                 int CHUNK, uint32_t km,
-                                                 int from, int lane,
-                                                 uint32_t kmask) {
-  uint32_t x = code_at(codes, from + lane, CHUNK);
+template <class T>
+__device__ __forceinline__ T br_roll_warp(const uint8_t* codes, int CHUNK,
+                                          T km, int from, int lane,
+                                          T kmask) {
+  constexpr int NB = br_reg_codes<T>();
+  T x = code_at(codes, from + lane, CHUNK);
 #pragma unroll
-  for (int d = 1; d < 16; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(BR_FULL, x, d);
+  for (int d = 1; d < NB; d <<= 1) {
+    const T y = __shfl_up_sync(BR_FULL, x, d);
     if (lane >= d) x |= y << (2 * d);
   }
-  const uint32_t hi = lane < 15 ? km << (2 * (lane + 1)) : 0u;
+  const T hi = lane < NB - 1 ? km << (2 * (lane + 1)) : T(0);
   return (hi | x) & kmask;
 }
 
@@ -141,7 +170,7 @@ __device__ __forceinline__ uint32_t br_roll_warp(const uint8_t* codes,
 // the low / high bit of the code at i+base+j, loaded one code a lane and
 // gathered by two ballots.  An attempt orders its probes so that a round
 // of 32 lanes needs codes within 29 positions (a probe's k-mer takes at
-// most its last k <= 15 codes), and loads the window again for a round
+// most its last k <= 17 codes), and loads the window again for a round
 // past it: any confirm count c works with the codes in registers.
 struct BrWindow {
   uint32_t lo, hi;
@@ -174,14 +203,24 @@ __device__ __forceinline__ uint32_t br_span(const BrWindow& w, int e,
   return x;
 }
 
+// br_span of n (1..17) codes in the register type: past 16 codes, the
+// first n-16 in the high word.
+template <class T>
+__device__ __forceinline__ T br_span_t(const BrWindow& w, int e, int n) {
+  if constexpr (sizeof(T) == 8) {
+    if (n > 16)
+      return ((uint64_t)br_span(w, e - 16, n - 16) << 32) | br_span(w, e, 16);
+  }
+  return br_span(w, e, n);
+}
+
 // km after absorbing the m >= 1 codes of the window ending at i+e: the m
 // br_adds of a thread in one step, since only the last k codes remain.
-__device__ __forceinline__ uint32_t br_roll_window(const BrWindow& w,
-                                                   uint32_t km, int e,
-                                                   int m, int k,
-                                                   uint32_t kmask) {
-  const uint32_t hi = m < k ? km << (2 * m) : 0u;
-  return (hi | br_span(w, e, m < k ? m : k)) & kmask;
+template <class T>
+__device__ __forceinline__ T br_roll_window(const BrWindow& w, T km, int e,
+                                            int m, int k, T kmask) {
+  const T hi = m < k ? km << (2 * m) : T(0);
+  return (hi | br_span_t<T>(w, e, m < k ? m : k)) & kmask;
 }
 
 // The One attempt (exist/one.rs; make_one_attempt32_arr, engine3.py:300):
@@ -190,12 +229,14 @@ __device__ __forceinline__ uint32_t br_roll_window(const BrWindow& w,
 // one_more among several.  corr is the gated alternative k-mer.  Its
 // 1 + 3*(c+1) probes are independent: lane idx = 3*s + off takes k-mer s
 // of scenario off (rounds of 32 past 32 probes, a round's codes within
-// s0-14 .. s0+13 for its first s0), and the scenario masks are
-// OR-reduced.
-__device__ __forceinline__ BrAttempt br_one_attempt_warp(
-    const BrSites& a, int c, int i, uint32_t corr, int lenf,
-    int32_t* erow, int lane) {
-  const uint32_t kmask = br_kmask(a.k);
+// s0-L .. s0+13 for its first s0, L = br_lag<T>() >= k-1), and the
+// scenario masks are OR-reduced.
+template <class T>
+__device__ __forceinline__ BrAttempt<T> br_one_attempt_warp(
+    const BrSites& a, int c, int i, T corr, int lenf, int32_t* erow,
+    int lane) {
+  constexpr int L = br_lag<T>();
+  const T kmask = br_kmask<T>(a.k);
   const int rem = lenf - i;
   const bool corr_ok = br_probe(a.table, corr, a.k);
   const int tot = 3 * (c + 1);
@@ -203,12 +244,11 @@ __device__ __forceinline__ BrAttempt br_one_attempt_warp(
   for (int r0 = 0; r0 < tot; r0 += 32) {
     const int s0 = r0 / 3;
     const BrWindow w = br_window_warp(a.codes, a.CHUNK, i,
-                                      s0 > 14 ? s0 - 14 : 0, lane);
+                                      s0 > L ? s0 - L : 0, lane);
     const int idx = r0 + lane;
     if (idx < tot) {
       const int s = idx / 3, off = idx - 3 * s;
-      const uint32_t km = br_roll_window(w, corr, off + s, s + 1, a.k,
-                                         kmask);
+      const T km = br_roll_window(w, corr, off + s, s + 1, a.k, kmask);
       const bool v = br_probe(a.table, km, a.k);
       if (s < c) {
         if (!v) failm |= 1u << off;
@@ -229,7 +269,7 @@ __device__ __forceinline__ BrAttempt br_one_attempt_warp(
   }
   const int nk = __popc(keepm), nk2 = __popc(keep2m);
   const uint32_t sel = nk == 1 ? keepm : keep2m;
-  BrAttempt r;
+  BrAttempt<T> r;
   r.ok = (nk == 1) || (nk > 1 && nk2 == 1);
   r.consumed = (sel & 2u) ? 1 : ((sel & 4u) ? 2 : 0);
   r.cap = false;
@@ -246,7 +286,7 @@ __device__ __forceinline__ BrAttempt br_one_attempt_warp(
 // succ and s_cap; lanes nrec..SLOTS-1 the rec_p sentinels.  The site's
 // read is found by a 32-way warp search of rstart (two dependent loads
 // for 512 slots, no staging in shared memory).
-template <class Attempt>
+template <class T, class Attempt>
 __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
                                                    int sid, int lane,
                                                    Attempt& attempt) {
@@ -256,16 +296,16 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
   int nrec = 0, cap = 0, nxt = a.NS;
 
   if (sid < n_eff) {
-    const uint32_t kmask = br_kmask(k);
+    const T kmask = br_kmask<T>(k);
     const int pos = a.s_pos[sid];
-    uint32_t reg = (uint32_t)a.kmers[pos];
+    T reg = br_kmer_at<T>(a, pos);
     // the last slot starting at or before pos
     const int rid = br_warp_lower_bound(a.rstart, a.R, pos + 1, lane) - 1;
     const int lenf = a.rstart[rid] + a.rlen[rid];
     int i = pos, t = k;
     while (true) {
-      uint32_t corr;
-      BrAttempt r = {false, false, 0u, 0, 0};
+      T corr;
+      BrAttempt<T> r = {false, false, T(0), 0, 0};
       if (br_alt_last_warp(a.table, reg, k, lane, &corr) == 1) {
         int32_t* erow = nrec < BR_SLOTS
                             ? a.rec_e + (size_t)(rb + nrec) * a.EW
@@ -287,10 +327,9 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
       // (register after m+1 codes, si0+m, st0+m); the first lane with an
       // event (st >= k, the read end, or !v && prev) decides
       const int si0 = applied ? i + r.consumed : i + 1;
-      const uint32_t sreg0 = applied ? r.new_kmer : reg;
+      const T sreg0 = applied ? r.new_kmer : reg;
       const int st0 = applied ? 0 : t;
-      const uint32_t sm = br_roll_warp(a.codes, a.CHUNK, sreg0, si0, lane,
-                                       kmask);
+      const T sm = br_roll_warp(a.codes, a.CHUNK, sreg0, si0, lane, kmask);
       const bool live = lane < k && st0 + lane < k && si0 + lane < lenf;
       const bool v = live && br_probe(a.table, sm, k);
       const uint32_t vm = __ballot_sync(BR_FULL, v);
@@ -298,7 +337,7 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
       const bool ev = lane < k && (!live || (!v && prev));
       const uint32_t em = __ballot_sync(BR_FULL, ev);
       const int f = em ? __ffs(em) - 1 : k;
-      const uint32_t sreg_f = __shfl_sync(BR_FULL, sm, f & 31);
+      const T sreg_f = __shfl_sync(BR_FULL, sm, f & 31);
       const int si = si0 + f;
       int state = BR_DONE_PURE;
       if (f < k && st0 + f < k)
@@ -345,7 +384,7 @@ static inline BrSites br_sites_args(
   BrSites a;
   a.codes = (const uint8_t*)codes;
   a.table = (const uint32_t*)table;
-  a.kmers = (const int32_t*)kmers;
+  a.kmers = kmers;
   a.s_pos = (const int32_t*)s_pos;
   a.n_sites = (const int32_t*)n_sites;
   a.rstart = (const int32_t*)rstart;

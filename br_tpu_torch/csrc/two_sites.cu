@@ -40,6 +40,9 @@
 // any is used); a lane's probe is set up without branches (its
 // scenario's candidate and one_more register by shuffle from lane s);
 // NS warps, 2 a block, fill every SM.
+//
+// Both register widths from one source: br_two_sites (uint32_t, k <= 15)
+// and br_two_sites64 (uint64_t, k = 17), the same code.
 #include "sites_common.cuh"
 
 #define N_SCEN 13
@@ -98,36 +101,36 @@ __device__ __forceinline__ uint32_t off_at_most(int lim, uint32_t le0,
 
 // make_two_attempt32 for one site, called by every lane of the warp with
 // the same arguments; every lane returns the same result.
-__device__ __forceinline__ BrAttempt two_attempt_warp(
-    const BrSites& a, int c, int lane, int i, uint32_t reg, uint32_t corr,
-    int lenf, int32_t* erow) {
+template <class T>
+__device__ __forceinline__ BrAttempt<T> two_attempt_warp(
+    const BrSites& a, int c, int lane, int i, T reg, T corr, int lenf,
+    int32_t* erow) {
+  constexpr int L = br_lag<T>() + 1;
   const int k = a.k;
-  const uint32_t kmask = br_kmask(k);
+  const T kmask = br_kmask<T>(k);
   const int rem = lenf - i;
   BrWindow w = br_window_warp(a.codes, a.CHUNK, i, 0, lane);
-  auto add = [&](uint32_t km, uint32_t code) {
-    return br_add(km, code, kmask);
-  };
+  auto add = [&](T km, uint32_t code) { return br_add(km, code, kmask); };
   auto alt = [](uint32_t m) {  // the sum of the bases a whose bit is set
     return ((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3);
   };
 
   // the apply steps' registers (absorb(km, i+j) is add(km, code j))
-  const uint32_t t0 = add(corr, br_span(w, 0, 1));
-  const uint32_t t1 = add(corr, br_span(w, 1, 1));
-  const uint32_t second = add(corr, br_span(w, 2, 1));
-  const uint32_t t3 = add(corr, br_span(w, 3, 1));
-  const uint32_t t2 = add(t1, br_span(w, 2, 1));
-  const uint32_t sci = add(t1, br_span(w, 3, 1));
-  const uint32_t b1 = (t1 >> 2) << 2, b2 = (t2 >> 2) << 2;
+  const T t0 = add(corr, br_span(w, 0, 1));
+  const T t1 = add(corr, br_span(w, 1, 1));
+  const T second = add(corr, br_span(w, 2, 1));
+  const T t3 = add(corr, br_span(w, 3, 1));
+  const T t2 = add(t1, br_span(w, 2, 1));
+  const T sci = add(t1, br_span(w, 3, 1));
+  const T b1 = (t1 >> 2) << 2, b2 = (t2 >> 2) << 2;
 
   // round A: lanes 4g+a probe alt_last(t1), alt_last(t2) (g = 0, 1) and
   // the successors of corr, second, t1, t0 (g = 2..5); lane 24 t3
   const int g = lane >> 2;
   const uint32_t la = lane & 3u;
-  const uint32_t nb = g == 2 ? corr : g == 3 ? second : g == 4 ? t1 : t0;
-  const uint32_t qa = g == 0 ? b1 ^ la : g == 1 ? b2 ^ la
-                      : g < 6 ? add(nb, la) : t3;
+  const T nb = g == 2 ? corr : g == 3 ? second : g == 4 ? t1 : t0;
+  const T qa = g == 0 ? b1 ^ (T)la : g == 1 ? b2 ^ (T)la
+               : g < 6 ? add(nb, la) : t3;
   const uint32_t M =
       __ballot_sync(BR_FULL, lane < 25 && br_probe(a.table, qa, k));
   const uint32_t m1 = M & 0xFu, m2 = (M >> 4) & 0xFu;
@@ -164,22 +167,24 @@ __device__ __forceinline__ BrAttempt two_attempt_warp(
   // lane s < 13: scenario s's candidate km2 and its one_more register
   // before the c+1 codes (corr >> 2 and the emitted bases)
   const int ls = lane < N_SCEN ? lane : 0;
-  const uint32_t km2v =
-      ls <= IS ? corr : (ls == SS || ls == ICS) ? (b1 ^ alt(m1))
+  const T km2v =
+      ls <= IS ? corr : (ls == SS || ls == ICS) ? (b1 ^ (T)alt(m1))
       : (ls == SD || ls == DD) ? add(corr, alt(mc)) : ls == ICI ? t3
       : ls == ICD ? add(second, alt(msec)) : (ls == SCI || ls == DCI) ? sci
-      : ls == SCS ? (b2 ^ alt(m2)) : ls == SCD ? add(t1, alt(mt1))
+      : ls == SCS ? (b2 ^ (T)alt(m2)) : ls == SCD ? add(t1, alt(mt1))
       : add(t0, alt(mt0));
   const int ne = field(EMIT_N, ls, 2);
-  const uint32_t src = field(EMIT_CORR, ls, 1) ? corr : km2v;
-  const uint32_t mbv =
-      (((corr >> 2) << (2 * ne)) | (src & ((1u << (2 * ne)) - 1u))) & kmask;
+  const T src = field(EMIT_CORR, ls, 1) ? corr : km2v;
+  const T mbv =
+      (((corr >> 2) << (2 * ne)) | (src & (T)((1u << (2 * ne)) - 1u))) &
+      kmask;
 
   // round B: probe j of scenario s, on lane-wise index 13*j + s: j = 0
   // its candidate, 1..c the window k-mer after j codes from APPLY_OFF,
   // c+1 the one_more k-mer after c+1 codes from CORRECT_OFF.  A pass of
   // TWO_UNROLL rounds spans j0 .. j0+8, so its codes lie within
-  // j0-15 .. j0+11: the window is loaded again at j0-15 past the first.
+  // j0-L .. j0+11 (L = k_max, 15 or 17): the window is loaded again at
+  // j0-L past the first.
   // Probes of scenarios that cannot keep are not loaded (they count as
   // failed, which changes nothing).
   const int P = N_SCEN * (c + 2);
@@ -187,7 +192,7 @@ __device__ __forceinline__ BrAttempt two_attempt_warp(
   for (int b0 = 0; b0 < P; b0 += 32 * TWO_UNROLL) {
     const int j0 = b0 / N_SCEN;
     if (b0 > 0)
-      w = br_window_warp(a.codes, a.CHUNK, i, j0 > 15 ? j0 - 15 : 0, lane);
+      w = br_window_warp(a.codes, a.CHUNK, i, j0 > L ? j0 - L : 0, lane);
     uint32_t word[TWO_UNROLL], bit[TWO_UNROLL];
     int sc[TWO_UNROLL];
     bool om[TWO_UNROLL];
@@ -197,20 +202,20 @@ __device__ __forceinline__ BrAttempt two_attempt_warp(
       const bool in = idx < P;
       const int id = in ? idx : P - 1;  // idle lanes: a probe of this pass
       const int j = id / N_SCEN, s = id - N_SCEN * j;
-      const uint32_t k2 = __shfl_sync(BR_FULL, km2v, s);
-      const uint32_t mb = __shfl_sync(BR_FULL, mbv, s);
+      const T k2 = __shfl_sync(BR_FULL, km2v, s);
+      const T mb = __shfl_sync(BR_FULL, mbv, s);
       const bool more = j > c;
       const int m = more ? c + 1 : j;  // codes absorbed, 0 for km2 itself
       const int off = more ? field(CORRECT_OFF, s, 3)
                            : field(APPLY_OFF, s, 3);
-      const uint32_t base = more ? mb : k2;
-      const uint32_t rolled = br_roll_window(w, base, off + (m ? m : 1) - 1,
-                                             m ? m : 1, k, kmask);
-      const uint32_t km = m ? rolled : base;
+      const T base = more ? mb : k2;
+      const T rolled = br_roll_window(w, base, off + (m ? m : 1) - 1,
+                                      m ? m : 1, k, kmask);
+      const T km = m ? rolled : base;
       const bool need = in && (((more ? mored : scored) >> s) & 1u);
-      const uint32_t bi = br_canonical(km, k) >> 1;  // br_probe's bit
+      const T bi = br_canonical(km, k) >> 1;  // br_probe's bit
       word[u] = need ? __ldg(a.table + (bi >> 5)) : 0u;
-      bit[u] = bi & 31u;
+      bit[u] = (uint32_t)bi & 31u;
       sc[u] = in ? s : 31;
       om[u] = more;
     }
@@ -228,16 +233,17 @@ __device__ __forceinline__ BrAttempt two_attempt_warp(
   const uint32_t keepm = aok & fit_a & ~failm;
   const uint32_t keep2m = keepm & fit_c & morem;
   const int nk1 = __popc(keepm), nk2 = __popc(keep2m);
-  BrAttempt res = {false, false, 0u, 0, 0};
+  BrAttempt<T> res = {false, false, T(0), 0, 0};
   res.ok = nk1 == 1 || (nk1 > 1 && nk2 == 1);
   if (!res.ok) return res;
   const int s = __ffs(nk1 == 1 ? keepm : keep2m) - 1;
   const int nes = field(EMIT_N, s, 2);
-  const uint32_t srcs = field(EMIT_CORR, s, 1)
-                            ? corr : __shfl_sync(BR_FULL, km2v, s);
-  uint32_t emit = 0, nkm = reg >> 2;
+  const T srcs = field(EMIT_CORR, s, 1) ? corr
+                                         : (T)__shfl_sync(BR_FULL, km2v, s);
+  uint32_t emit = 0;
+  T nkm = reg >> 2;
   for (int t = 0; t < nes; ++t) {
-    const uint32_t b = (srcs >> (2 * (nes - 1 - t))) & 3u;
+    const uint32_t b = (uint32_t)(srcs >> (2 * (nes - 1 - t))) & 3u;
     emit |= b << (2 * t);
     nkm = add(nkm, b);
   }
@@ -248,19 +254,20 @@ __device__ __forceinline__ BrAttempt two_attempt_warp(
   return res;
 }
 
+template <class T>
 __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
     two_sites_kernel(BrSites a, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_PAIR_SITES + warp;
   if (sid >= a.NS) return;
-  auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
-                     int32_t* erow) {
-    return two_attempt_warp(a, c, lane, i, reg, corr, lenf, erow);
+  auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
+    return two_attempt_warp<T>(a, c, lane, i, reg, corr, lenf, erow);
   };
-  br_site_chain_warp(a, sid, lane, attempt);
+  br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-extern "C" int br_two_sites(
+template <class T>
+static int two_sites_launch(
     const void* codes, const void* table, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int c, int NS, void* succ,
@@ -269,7 +276,24 @@ extern "C" int br_two_sites(
   BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
                             rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                             rec_c, rec_s, rec_e);
-  two_sites_kernel<<<br_warp_site_blocks(NS, BR_PAIR_SITES),
-                     32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(a, c);
+  two_sites_kernel<T><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
+                        32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(a, c);
   return (int)cudaGetLastError();
+}
+
+#define TWO_ARGS                                                          \
+  const void *codes, const void *table, const void *kmers,                \
+      const void *s_pos, const void *n_sites, const void *rstart,         \
+      const void *rlen, int CHUNK, int R, int k, int c, int NS,           \
+      void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
+      void *rec_e, void *stream
+#define TWO_PASS                                                          \
+  codes, table, kmers, s_pos, n_sites, rstart, rlen, CHUNK, R, k, c, NS,  \
+      succ, s_cap, rec_p, rec_c, rec_s, rec_e, stream
+
+extern "C" int br_two_sites(TWO_ARGS) {
+  return two_sites_launch<uint32_t>(TWO_PASS);
+}
+extern "C" int br_two_sites64(TWO_ARGS) {
+  return two_sites_launch<uint64_t>(TWO_PASS);
 }

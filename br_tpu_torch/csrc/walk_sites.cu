@@ -53,6 +53,13 @@
 //    the thread-per-site design;
 //  - Brent past walk_max stays one loop of the warp, its 4 probes on 4
 //    lanes.
+//
+// Both register widths from one source: br_walk_sites (uint32_t, k <= 15)
+// and br_walk_sites64 (uint64_t, k = 17), the same code.  The history
+// holds k-mers in the register type, so at k = 17 a warp's slice is
+// (walk_max+1) * 8 bytes: 130,624 B a block of 8 warps at walk_max 2040,
+// inside the 227 KB a block may ask for, at one block an SM where the
+// 32-bit history fits one more.
 #include "sites_common.cuh"
 
 #define WALK_RUN 0
@@ -70,25 +77,24 @@ struct WalkCtx {
 };
 
 // error_len: (j, k-mer after j), engine3.py:1459-1499
+template <class T>
 __device__ __forceinline__ void err_len_warp(const BrSites& a,
                                              const WalkCtx& w, int i,
-                                             uint32_t kmer, int lenf,
-                                             int lane, int* j_out,
-                                             uint32_t* km_out) {
+                                             T kmer, int lenf, int lane,
+                                             int* j_out, T* km_out) {
   const int k = a.k;
   const int rem = lenf - i;
   // lane m: absorb j = m+1 (its k-mer after the codes i+1 .. i+j)
-  const uint32_t kmj = br_roll_warp(a.codes, a.CHUNK, kmer, i + 1, lane,
-                                    br_kmask(k));
+  const T kmj = br_roll_warp(a.codes, a.CHUNK, kmer, i + 1, lane,
+                             br_kmask<T>(k));
   const int j = lane + 1;
   const bool hit = lane < k && j < rem && br_probe(a.table, kmj, k);
   const uint32_t em = __ballot_sync(BR_FULL, lane < k && (j >= rem || hit));
-  const uint32_t km_before = __shfl_up_sync(BR_FULL, kmj, 1);
+  const T km_before = __shfl_up_sync(BR_FULL, kmj, 1);
   if (em) {
     const int f = __ffs(em) - 1;
-    const uint32_t km_hit = __shfl_sync(BR_FULL, kmj, f);
-    const uint32_t km_end = f == 0 ? kmer
-                                   : __shfl_sync(BR_FULL, km_before, f);
+    const T km_hit = __shfl_sync(BR_FULL, kmj, f);
+    const T km_end = f == 0 ? kmer : (T)__shfl_sync(BR_FULL, km_before, f);
     *j_out = f + 1;
     *km_out = f + 1 >= rem ? km_end : km_hit;
     return;
@@ -111,30 +117,30 @@ __device__ __forceinline__ void err_len_warp(const BrSites& a,
     q = __reduce_min_sync(BR_FULL, q);
     if (q != NO_POS) {
       *j_out = q - i;
-      *km_out = (uint32_t)a.kmers[q];
+      *km_out = br_kmer_at<T>(a, q);
       return;
     }
   }
   *j_out = rem;
   int e = rem >= 2 ? i + rem - 1 : i;
   e = e < 0 ? 0 : (e < a.CHUNK ? e : a.CHUNK - 1);
-  *km_out = (uint32_t)a.kmers[e];
+  *km_out = br_kmer_at<T>(a, e);
 }
 
 // The walk from corr: status, and (n, wk) after it.  hist is the warp's
 // history slice (walk_max+1 words).  Emit words go to erow (when given):
 // ceil(n/16) of them, written by lane 0.
+template <class T>
 __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
-                                         int lane, uint32_t* hist,
-                                         uint32_t corr, uint32_t fc,
+                                         int lane, T* hist, T corr, T fc,
                                          bool use_fc, int max_steps,
                                          int32_t* erow, int* n_out,
-                                         uint32_t* wk_out) {
+                                         T* wk_out) {
   const int k = a.k;
-  const uint32_t kmask = br_kmask(k);
-  uint32_t wk = corr;
+  const T kmask = br_kmask<T>(k);
+  T wk = corr;
   int n = 1, status = WALK_RUN;
-  uint32_t cur = corr & 3u;  // the emit word being filled
+  uint32_t cur = (uint32_t)corr & 3u;  // the emit word being filled
   if (lane == 0) hist[0] = corr;
   __syncwarp();
   // tiers 1 and 2: exact history up to walk_max
@@ -142,7 +148,7 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
          n <= w.walk_max) {
     uint32_t sa;
     const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
-    const uint32_t wk2 = br_add(wk, sa, kmask);
+    const T wk2 = br_add(wk, sa, kmask);
     bool decline = ns != 1;
     if (!decline) {
       bool seen = false;
@@ -168,12 +174,12 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
   // tier 3: past walk_max, Brent cycle detection
   if (status == WALK_CAP && !(use_fc && wk == fc)) {
     status = WALK_RUN;
-    uint32_t saved = wk;
+    T saved = wk;
     int lam = 0, power = 1;
     while (status == WALK_RUN) {
       uint32_t sa;
       const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
-      const uint32_t wk2 = br_add(wk, sa, kmask);
+      const T wk2 = br_add(wk, sa, kmask);
       const bool accept = use_fc && wk2 == fc;
       const bool done_fill = !use_fc && n >= max_steps;
       if (ns != 1 || wk2 == saved) status = WALK_DECLINE;
@@ -192,12 +198,12 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
   return status;
 }
 
-__device__ __forceinline__ BrAttempt walk_attempt(
-    const BrSites& a, const WalkCtx& w, int mode, int c, int lane,
-    uint32_t* hist, int i, uint32_t reg, uint32_t corr, int lenf,
-    int32_t* erow) {
+template <class T>
+__device__ __forceinline__ BrAttempt<T> walk_attempt(
+    const BrSites& a, const WalkCtx& w, int mode, int c, int lane, T* hist,
+    int i, T reg, T corr, int lenf, int32_t* erow) {
   int err_len;
-  uint32_t fc;
+  T fc;
   err_len_warp(a, w, i, reg, lenf, lane, &err_len, &fc);
   bool use_fc = true;
   int max_steps = w.walk_max;
@@ -208,10 +214,10 @@ __device__ __forceinline__ BrAttempt walk_attempt(
     max_steps = use_fc ? 0 : err_len - a.k;
   }
   int n;
-  uint32_t wk;
+  T wk;
   const int st = walk_warp(a, w, lane, hist, corr, fc, use_fc, max_steps,
                            erow, &n, &wk);
-  BrAttempt r;
+  BrAttempt<T> r;
   r.new_kmer = wk;
   r.ok = use_fc ? st == WALK_ACCEPT : st == WALK_RUN;
   r.cap = st == WALK_CAP;
@@ -220,22 +226,24 @@ __device__ __forceinline__ BrAttempt walk_attempt(
   return r;
 }
 
+template <class T>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     walk_sites_kernel(BrSites a, WalkCtx w, int mode, int c) {
-  extern __shared__ uint32_t sh_hist[];  // BR_WARP_SITES x (walk_max+1)
+  // BR_WARP_SITES x (walk_max+1) k-mers of type T
+  extern __shared__ __align__(8) unsigned char sh_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
-  uint32_t* hist = sh_hist + (size_t)warp * (w.walk_max + 1);
-  auto attempt = [&](int i, uint32_t reg, uint32_t corr, int lenf,
-                     int32_t* erow) {
-    return walk_attempt(a, w, mode, c, lane, hist, i, reg, corr, lenf,
-                        erow);
+  T* hist = reinterpret_cast<T*>(sh_raw) + (size_t)warp * (w.walk_max + 1);
+  auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
+    return walk_attempt<T>(a, w, mode, c, lane, hist, i, reg, corr, lenf,
+                           erow);
   };
-  br_site_chain_warp(a, sid, lane, attempt);
+  br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-extern "C" int br_walk_sites(
+template <class T>
+static int walk_sites_launch(
     const void* codes, const void* table, const void* kmers,
     const void* V, const void* s_pos, const void* n_sites,
     const void* rstart, const void* rlen, int CHUNK, int R, int k, int c,
@@ -247,18 +255,36 @@ extern "C" int br_walk_sites(
   WalkCtx w;
   w.V = (const uint8_t*)V;
   w.walk_max = walk_max;
-  const size_t smem = (size_t)BR_WARP_SITES * (walk_max + 1) * 4;
+  const size_t smem = (size_t)BR_WARP_SITES * (walk_max + 1) * sizeof(T);
   // above 48 KB of dynamic shared memory a kernel has to ask for it
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        walk_sites_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        walk_sites_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     granted = smem;
   }
-  walk_sites_kernel<<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                      BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
+  walk_sites_kernel<T><<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                         BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
       a, w, mode, c);
   return (int)cudaGetLastError();
+}
+
+#define WALK_ARGS                                                         \
+  const void *codes, const void *table, const void *kmers, const void *V, \
+      const void *s_pos, const void *n_sites, const void *rstart,         \
+      const void *rlen, int CHUNK, int R, int k, int c, int NS, int mode, \
+      int walk_max, int EW, void *succ, void *s_cap, void *rec_p,         \
+      void *rec_c, void *rec_s, void *rec_e, void *stream
+#define WALK_PASS                                                         \
+  codes, table, kmers, V, s_pos, n_sites, rstart, rlen, CHUNK, R, k, c,   \
+      NS, mode, walk_max, EW, succ, s_cap, rec_p, rec_c, rec_s, rec_e,    \
+      stream
+
+extern "C" int br_walk_sites(WALK_ARGS) {
+  return walk_sites_launch<uint32_t>(WALK_PASS);
+}
+extern "C" int br_walk_sites64(WALK_ARGS) {
+  return walk_sites_launch<uint64_t>(WALK_PASS);
 }

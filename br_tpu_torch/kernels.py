@@ -1,18 +1,22 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``br_tpu_torch/csrc`` with a
-plain C entry point.  At first use the source is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into a shared library under ``<repo>/build/kernels``
-(git-ignored) and loaded with ``ctypes``; every pointer and the stream
-pass as ``c_void_p``.  ``build_all`` starts one ``nvcc`` per source, all
-at once.  Libraries are named by a hash of their source, headers and
-flags, so an edited source is rebuilt.
+Each kernel is a plain C entry point of one CUDA C++ source under
+``br_tpu_torch/csrc``; a source may hold several (the k-mer kernels have
+one for 32-bit registers, k <= 15, and one named ``<name>64`` for 64-bit
+registers, k = 17; K8 has a count and a pack kernel).  At first use a
+source is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
+library under ``<repo>/build/kernels`` (git-ignored) and loaded with
+``ctypes``; every pointer and the stream pass as ``c_void_p``.
+``build_all`` starts one ``nvcc`` per source, all at once.  Libraries are
+named by a hash of their source, headers and flags, so an edited source
+is rebuilt.  Under BR_BOUNDS_CHECK=1 the libraries are the checked build
+(``CHECKED_FLAGS``), named apart.
 
-``LAUNCHES`` counts, per kernel, the device launches its wrapper made; a
-wrapper adds them right after its entry point launched and nowhere else
-(two for ``chain_splice``, whose entry point launches a walk kernel and a
-copy kernel).  Nothing here imports or builds anything when the module is
-imported.
+``LAUNCHES`` counts, per kernel name, the device launches its wrapper
+made; a wrapper adds them right after its entry point launched and
+nowhere else (two for ``chain_splice``, whose entry point launches a walk
+kernel and a copy kernel).  Nothing here imports or builds anything when
+the module is imported.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ from pathlib import Path
 
 import torch
 
+from br_tpu_torch.correct.device_codec import MAX_K32
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: kernel name -> (source file, C entry point, argtypes letters:
-#: p = pointer/stream (c_void_p), i = int (c_int)).
+#: p = pointer/stream (c_void_p), i = int (c_int), l = c_longlong).
 KERNELS = {
     "dense_probe": ("dense_probe.cu", "br_dense_probe", "pppp" + "iiii"
                     + "ppppppp" + "pp" + "p"),
@@ -48,7 +54,16 @@ KERNELS = {
                    + "iiiiiiii" + "pppppp" + "p"),
     "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "ppppppp"
                      + "iiiiii" + "pppppp" + "p"),
+    "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "p"
+                    + "p"),
+    "solid_pack": ("solid_build.cu", "br_solid_pack", "plipi" + "p"),
 }
+#: the 64-bit instantiations (k = 17) of the k-mer kernels: the same
+#: source and arguments, entry point ``<entry>64``.
+WIDE = ("dense_probe", "one_sites", "two_sites", "walk_sites",
+        "greedy_sites", "solid_count")
+KERNELS.update({f"{n}64": (KERNELS[n][0], KERNELS[n][1] + "64",
+                           KERNELS[n][2]) for n in WIDE})
 
 #: device kernels an entry point launches per call, where more than one.
 PER_CALL = {"chain_splice": 2}
@@ -58,6 +73,10 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: the checked build's flags (``BR_CHECK`` in csrc/common.cuh), added
+#: where the environment sets BR_BOUNDS_CHECK=1
+CHECKED_FLAGS = ["-DBR_BOUNDS_CHECK", "-lineinfo"]
 
 _LIBS: dict = {}
 #: nvcc's report per kernel (registers, shared memory, spills).
@@ -80,20 +99,38 @@ def nvcc_path() -> str:
                        "machine with the GPU, where the CUDA toolkit is")
 
 
-def _lib_path(name: str) -> Path:
-    src = KERNELS[name][0]
+def width(name: str, k: int) -> str:
+    """The kernel name of ``name``'s instantiation for k: the 64-bit one
+    past ``MAX_K32``."""
+    return f"{name}64" if k > MAX_K32 else name
+
+
+def nvcc_flags() -> list:
+    """``NVCC_FLAGS``, with ``CHECKED_FLAGS`` under BR_BOUNDS_CHECK=1."""
+    if os.environ.get("BR_BOUNDS_CHECK") == "1":
+        return NVCC_FLAGS + CHECKED_FLAGS
+    return NVCC_FLAGS
+
+
+def _lib_path(src: str) -> Path:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    h.update(" ".join(nvcc_flags()).encode())
+    return BUILD_DIR / f"lib{Path(src).stem}_{h.hexdigest()[:12]}.so"
+
+
+def sources(names=None) -> list:
+    """The sources of the named kernels (all by default), each once."""
+    names = list(KERNELS) if names is None else list(names)
+    return list(dict.fromkeys(KERNELS[n][0] for n in names))
 
 
 def build_all(names=None) -> float:
-    """Compile every kernel not yet built, one nvcc process per source,
-    all started together; returns the wall seconds spent."""
-    names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    """Compile every source of the named kernels not yet built, one nvcc
+    process per source, all started together; returns the wall seconds
+    spent.  ``BUILD_LOG`` gets nvcc's report per source."""
+    todo = [s for s in sources(names) if not _lib_path(s).exists()]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -103,8 +140,8 @@ def build_all(names=None) -> float:
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / KERNELS[n][0])]
+        cmd = [nvcc, *nvcc_flags(), "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / n)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -121,20 +158,31 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+
+
+def bind(lib, names) -> None:
+    """Set the argument and result types of the named kernels' entry
+    points, and of the error text, in a loaded library."""
+    for n in names:
+        _src, entry, sig = KERNELS[n]
+        fn = getattr(lib, entry)
+        fn.argtypes = [_CTYPES[ch] for ch in sig]
+        fn.restype = ctypes.c_int
+    lib.br_error_string.argtypes = [ctypes.c_int]
+    lib.br_error_string.restype = ctypes.c_char_p
+
+
 def library(name: str):
-    """The loaded ctypes library of one kernel (built at first use)."""
-    lib = _LIBS.get(name)
+    """The loaded ctypes library of one kernel's source (built at first
+    use), shared by every kernel of that source."""
+    src = KERNELS[name][0]
+    lib = _LIBS.get(src)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _src, entry, sig = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
-                       for ch in sig]
-        fn.restype = ctypes.c_int
-        lib.br_error_string.argtypes = [ctypes.c_int]
-        lib.br_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(_lib_path(src)))
+        bind(lib, [n for n in KERNELS if KERNELS[n][0] == src])
+        _LIBS[src] = lib
     return lib
 
 

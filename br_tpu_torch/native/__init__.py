@@ -18,6 +18,8 @@ import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 _KIND = {"one": 0, "two": 1, "graph": 2, "greedy": 3, "gap-size": 4}
 
 #: loaded libraries by path
@@ -33,7 +35,7 @@ def get_lib():
     if lib is None:
         lib = ctypes.CDLL(path)
         lib.br_create_solid.restype = ctypes.c_void_p
-        lib.br_create_solid.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+        lib.br_create_solid.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
                                         ctypes.c_int]
         lib.br_destroy.argtypes = [ctypes.c_void_p]
         lib.br_correct.restype = ctypes.c_long
@@ -58,8 +60,10 @@ class NativeCorrector:
                             "(the port has no HashSet yet, ROADMAP A5)")
         self._lib = get_lib()
         self.k = valid_kmer.k
-        payload = valid_kmer.bits.tobytes()
-        self._ctx = self._lib.br_create_solid(payload, len(payload), self.k)
+        # the engine copies the bitfield (1 GiB at k = 17) from the array
+        bits = np.ascontiguousarray(valid_kmer.bits)
+        self._ctx = self._lib.br_create_solid(bits.ctypes.data, bits.nbytes,
+                                              self.k)
         kinds = [_KIND[c.lower().replace("_", "-")] for c in corrections]
         self._kinds = (ctypes.c_int * len(kinds))(*kinds)
         self._n = len(kinds)

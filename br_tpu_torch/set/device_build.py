@@ -1,0 +1,304 @@
+"""B8: the solid set counted, thresholded and bit-packed on the device
+(the port of ``br_tpu.set.device_build``), kernel K8
+(``csrc/solid_build.cu``).
+
+The host packs the reads, 2 bits a base, back to back (reads shorter than
+k are dropped, the code is ``(b >> 1) & 3``, as ``_pack_reads``,
+device_build.py:39-72), and ships only those; the count, the threshold
+and the bitfield stay in device memory (1 GiB at k = 17, which never
+crosses the bus).  A k-mer is solid where its count over the valid
+positions (``pin >= k - 1`` inside its read) saturated at 255 is above
+the abundance ``a``: ``min(count, 255) > a``, bit for bit the host
+``Counter(k).to_solid(a)`` for every ``a``, 255 and above included (an
+empty set; br_tpu's exact-count build differs there, device_build.py:
+14-17, and is not copied).
+
+On the card the canonical half-space (2^(2k-1) u32 counts: 128 MiB at
+k = 13, 32 GiB at k = 17) is swept in partitions of at most
+``max_count_bytes``; for each, K8a ``count_kmers`` adds every stored
+batch's k-mers that fall in it, then K8b ``threshold_pack`` writes its
+bitfield words and clears the counts for the next partition (the last
+partition's are left as they are).  Batches are kept packed on the
+device (a quarter byte a base), so a caller can stream records through
+``SolidBuilder.add`` without holding a file.
+
+``count_kmers`` and ``threshold_pack`` launch their kernels for CUDA
+tensors and run their plain versions for CPU tensors.  The plain version
+of the whole build, ``solid_words_plain`` (``torch.unique`` with counts),
+is what ``SolidBuilder.finish`` runs for a builder on the CPU: a dense
+sweep of 2^33 counts would not fit a test's memory at k = 17.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from br_tpu_torch import kernels
+from br_tpu_torch.correct import device_codec as dc
+from br_tpu_torch.set.solid import SolidSet
+
+#: the count partition's default byte cap on the card (8 partitions of
+#: 2^30 counts at k = 17; one at k <= 15)
+DEFAULT_MAX_COUNT_BYTES = 4 << 30
+#: counts a group of K8b (a warp's 16-byte loads): partitions are a
+#: multiple of it
+GROUP = 128
+#: bases of one packed batch of ``build_set``'s stream
+BATCH_BASES = 1 << 26
+
+
+class Packed(NamedTuple):
+    """One batch of reads on a device."""
+
+    codes: torch.Tensor   # uint8, 4 codes a byte LSB first, whole words
+    starts: torch.Tensor  # int64, the reads' first positions, from 0
+    n_bases: int
+
+
+def pack_reads(seqs, k: int, device) -> Packed:
+    """The reads of at least k bases, 2-bit codes back to back, on
+    ``device``."""
+    seqs = [s for s in seqs if len(s) >= k]
+    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64,
+                       count=len(seqs))
+    n = int(lens.sum())
+    codes = np.zeros(-(-n // 16) * 16, dtype=np.uint8)
+    if n:
+        codes[:n] = (np.frombuffer(b"".join(seqs), dtype=np.uint8) >> 1) & 3
+    b4 = codes.reshape(-1, 4)
+    packed = b4[:, 0] | (b4[:, 1] << 2) | (b4[:, 2] << 4) | (b4[:, 3] << 6)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return Packed(torch.from_numpy(packed).to(device),
+                  torch.from_numpy(starts).to(device), n)
+
+
+def _check_packed(p: Packed, k: int) -> None:
+    dc.check_k(k)
+    dev = p.codes.device
+    kernels.check(p.codes, "codes", torch.uint8, dev)
+    kernels.check(p.starts, "starts", torch.int64, dev)
+    if p.codes.shape[0] % 4 or p.codes.shape[0] * 4 < p.n_bases:
+        raise ValueError("packed codes must be whole 32-bit words covering "
+                         "n_bases")
+
+
+def count_kmers(p: Packed, k: int, pbase: int, counts) -> None:
+    """K8a: add to ``counts[i]`` (int32 holding u32) the occurrences of
+    canonical index ``pbase + i`` at the valid positions of ``p``."""
+    _check_packed(p, k)
+    kernels.check(counts, "counts", torch.int32, p.codes.device)
+    if kernels.on_cuda(counts):
+        if p.starts.shape[0]:
+            kernels.launch(kernels.width("solid_count", k), p.codes,
+                           p.codes.shape[0] // 4, p.starts,
+                           p.starts.shape[0], p.n_bases, k, pbase,
+                           counts.shape[0], counts)
+        return
+    count_kmers_plain(p, k, pbase, counts)
+
+
+def canonical_index(p: Packed, k: int):
+    """``cano >> 1`` of the k-mer ending at every valid position of
+    ``p`` (int64, in position order)."""
+    n = p.n_bases
+    c = dc.unpack_codes(p.codes, 4 * p.codes.shape[0])[:n].long()
+    km = torch.zeros(n, dtype=torch.int64, device=c.device)
+    for t in range(k):
+        km[t:] |= c[: n - t] << (2 * t)
+    pos = torch.arange(n, device=c.device)
+    rid = torch.searchsorted(p.starts, pos, right=True) - 1
+    valid = pos - p.starts[rid] >= k - 1
+    return dc.canonical_any(km[valid], k) >> 1
+
+
+def count_kmers_plain(p: Packed, k: int, pbase: int, counts) -> None:
+    """The same function as K8a in plain PyTorch ops."""
+    local = canonical_index(p, k) - pbase
+    local = local[(local >= 0) & (local < counts.shape[0])]
+    u, c = torch.unique(local, return_counts=True)
+    counts.index_add_(0, u, c.int())
+
+
+def threshold_pack(counts, a: int, words, clear: bool = True) -> None:
+    """K8b: ``words`` (int32, one bit a count, LSB first) = min(count,
+    255) > a; with ``clear``, ``counts`` is zeroed."""
+    dev = counts.device
+    kernels.check(counts, "counts", torch.int32, dev)
+    kernels.check(words, "words", torch.int32, dev, counts.shape[0] // 32)
+    if counts.shape[0] % GROUP:
+        raise ValueError(f"counts must be a multiple of {GROUP}")
+    a = max(-1, min(int(a), 256))
+    if kernels.on_cuda(counts):
+        kernels.launch("solid_pack", counts, counts.shape[0] // GROUP, a,
+                       words, int(clear))
+        return
+    threshold_pack_plain(counts, a, words, clear)
+
+
+def pack_bits(solid):
+    """(32 n,) bool -> (n,) int32 words, LSB first."""
+    sh = torch.arange(32, dtype=torch.int64, device=solid.device)
+    w = (solid.reshape(-1, 32).long() << sh).sum(1)
+    return ((w ^ 0x80000000) - 0x80000000).int()
+
+
+def threshold_pack_plain(counts, a: int, words, clear: bool = True) -> None:
+    """The same function as K8b in plain PyTorch ops."""
+    c = (counts.long() & 0xFFFFFFFF).clamp(max=255)
+    words.copy_(pack_bits(c > a))
+    if clear:
+        counts.zero_()
+
+
+def half_words(k: int) -> int:
+    """Words of the bitfield of k: 2^(2k-1) bits, at least one word."""
+    return max(1, (1 << (2 * k - 1)) // 32)
+
+
+def _tail_mask(words, k: int):
+    """Clear the bits past the half-space in a one-word field (k < 3)."""
+    half = 1 << (2 * k - 1)
+    if half < 32:
+        words &= (1 << half) - 1
+    return words
+
+
+def partition_size(k: int, max_count_bytes: int) -> int:
+    """Counts per partition: a power of two, at most ``max_count_bytes``
+    of u32 counts (at least one group), no more than the half-space
+    rounded up to a group."""
+    half = 1 << (2 * k - 1)
+    cap = max(GROUP, max_count_bytes // 4)
+    psize = 1 << (cap.bit_length() - 1)
+    return min(psize, max(GROUP, half))
+
+
+def build_words(batches, k: int, abundance: int,
+                max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES):
+    """The partitioned sweep over the half-space through K8a and K8b (on
+    the batches' device: the kernels on the card, their plain versions
+    on the CPU).  Returns the bitfield as int32 words."""
+    dc.check_k(k)
+    half = 1 << (2 * k - 1)
+    dev = batches[0].codes.device
+    psize = partition_size(k, max_count_bytes)
+    nparts = -(-half // psize)
+    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
+    words = torch.empty(nparts * psize // 32, dtype=torch.int32, device=dev)
+    for part in range(nparts):
+        for p in batches:
+            count_kmers(p, k, part * psize, counts)
+        # the last partition's counts are read by nothing after it
+        threshold_pack(counts, abundance,
+                       words[part * psize // 32:(part + 1) * psize // 32],
+                       clear=part + 1 < nparts)
+    return _tail_mask(words[:half_words(k)], k)
+
+
+def solid_words_plain(batches, k: int, abundance: int,
+                      device=None):
+    """The whole build in plain PyTorch ops: the valid positions'
+    canonical indices, ``torch.unique`` with counts, ``min(count, 255) >
+    a``, one bit each.  Returns the bitfield as int32 words on
+    ``device`` (the batches' by default)."""
+    dc.check_k(k)
+    dev = device or (batches[0].codes.device if batches else "cpu")
+    words = torch.zeros(half_words(k), dtype=torch.int32, device=dev)
+    a = max(-1, min(int(abundance), 256))
+    if a < 0:
+        return _tail_mask(words.fill_(-1), k)
+    idx = [canonical_index(p, k) for p in batches]
+    if not idx:
+        return words
+    u, c = torch.unique(torch.cat(idx), return_counts=True)
+    solid = u[c.clamp(max=255) > a].to(dev)
+    # distinct indices are distinct (word, bit), so adding their bits is
+    # their OR (bit 31 is the int32 -2^31)
+    ones = torch.ones_like(solid, dtype=torch.int32)
+    words.index_add_(0, solid >> 5,
+                     torch.bitwise_left_shift(ones, (solid & 31).int()))
+    return words
+
+
+class SolidBuilder:
+    """Count k-mers batch by batch on a device, then threshold them into
+    the solid bitfield (``finish``).  On the card the sweep runs K8; on
+    the CPU, ``solid_words_plain``."""
+
+    def __init__(self, k: int, device,
+                 max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES):
+        dc.check_k(k)
+        self.k = k
+        self.device = torch.device(device)
+        self.max_count_bytes = max_count_bytes
+        self.batches: list = []
+
+    def add(self, seqs) -> None:
+        """Pack a batch of reads and keep it on the device."""
+        p = pack_reads(seqs, self.k, self.device)
+        if p.n_bases:
+            self.batches.append(p)
+
+    def finish(self, abundance: int):
+        """The bitfield of ``min(count, 255) > abundance`` as int32 words
+        on the device."""
+        if self.device.type == "cuda" and self.batches:
+            return build_words(self.batches, self.k, abundance,
+                               self.max_count_bytes)
+        return solid_words_plain(self.batches, self.k, abundance,
+                                 self.device)
+
+
+def build_solid_words(seqs, k: int, abundance: int, device,
+                      max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES):
+    """The bitfield of the solid k-mers of ``seqs`` on ``device`` (the
+    counterpart of ``build_solid_words_on_device``)."""
+    b = SolidBuilder(k, device, max_count_bytes)
+    b.add(seqs)
+    return b.finish(abundance)
+
+
+def device_words_to_solid(words, k: int) -> SolidSet:
+    """A host ``SolidSet`` of a device bitfield (one device-to-host copy:
+    1 GiB at k = 17)."""
+    nbytes = max(1, (1 << (2 * k - 1)) // 8)
+    bits = words.cpu().numpy().view(np.uint8)[:nbytes]
+    return SolidSet(k, np.ascontiguousarray(bits))
+
+
+def popcount_words(words) -> int:
+    """Set bits of an int32 bitfield (on its device)."""
+    x = words.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
+class DeviceSolidSet:
+    """A solid set whose bitfield lives on a device (``build_solid_words``'s
+    output), with the k and the table interface of ``SolidSet``; a host
+    ``SolidSet`` of it is made once, at first ``host()`` (the native
+    engine's host reads need one)."""
+
+    def __init__(self, k: int, words):
+        dc.check_k(k)
+        if words.dtype != torch.int32 or words.shape != (half_words(k),):
+            raise ValueError("words must be the int32 bitfield of k")
+        self.k = k
+        self.words = words
+        self._host = None
+
+    def device_words(self, device):
+        return self.words.to(device)
+
+    def host(self) -> SolidSet:
+        if self._host is None:
+            self._host = device_words_to_solid(self.words, self.k)
+        return self._host
+
+    def count_ones(self) -> int:
+        return popcount_words(self.words)

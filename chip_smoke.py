@@ -7,12 +7,16 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 
 1. toolchain and device: the card's name and power limit (nvidia-smi),
    torch's CUDA version, nvcc's version, whether triton imports;
-2. build: the seven kernels from br_tpu_torch/csrc, one nvcc each, and
-   the native host engine (br_tpu_torch/native, g++), all at once
+2. build: the kernels from br_tpu_torch/csrc, one nvcc a source (each
+   k-mer kernel's source holds its 32-bit instantiation, k <= 15, and its
+   64-bit one, k = 17, with `ptxas` registers, stack and spills of each),
+   and the native host engine (br_tpu_torch/native, g++), all at once
    (started before the corpus is made, joined before first use);
 3. the main path's input: a seeded corpus (br_tpu_torch.corpus: 2000
    reads over a 2 Mb genome, ~24 Mb at 95-98 % identity) and the solid set
-   of the CLI's `fasta -k 13 -a 2` (host count and threshold);
+   of the CLI's `fasta -k 13 -a 2`, on the host (Counter, the set this
+   phase built before K8) and by K8 on the card (build_set): the same
+   bits, each build timed;
 4. kernel checks: K1-K7 on the card at the main path's shapes (the
    corpus's first chunk: CHUNK = 2^20 positions, R = 512 slots, k = 13):
    K1, then every site kernel (K2 one, K5 two, K6 graph and gap-size at
@@ -29,17 +33,19 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    each site kernel its chain floor (chain_floor: the slowest site's
    dependent global-memory round trips, one thread a site and a warp a
    site, counted from the plain version's chains); with --baseline, the
-   kernels K2, K5 and K4 whose sources differ in another tree's csrc (the
-   parent commit's: the thread-per-byte K4), built from there and called
-   through this tree's wrappers, are checked too and timed beside this
-   tree's, by the same method, in the order baseline, this tree, this
-   tree, baseline;
+   kernels K1-K7 whose sources differ in another tree's csrc (the parent
+   commit's), built from there and called through this tree's wrappers,
+   are checked too and timed beside this tree's, by the same method, in
+   the order baseline, this tree, this tree, baseline; then K8 (its count
+   and pack kernels) on the whole corpus against their plain versions,
+   with its bound and torch.unique's time on the same canonical k-mers;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
-   CLI's entry points (build_set, make_corrector, run_correction) with
-   every launch count set to 0 just before; the passes' cap counters by
-   reason and strategy; the host engine's seconds (host_oracle_s: the
-   native engine on the reads the device did not finish), its name and
+   CLI's entry points (build_set, whose K8 count is count_s, then
+   make_corrector, run_correction) with every launch count set to 0 just
+   before; the passes' cap counters by reason and strategy; the host
+   engine's seconds (host_oracle_s: the native engine on the reads the
+   device did not finish, with its set copied at first need), its name and
    threads; fails if a kernel was not launched or more than 5 % of the
    reads went to the host;
 6. the wide profile's kernel checks, on the main path's first retry
@@ -58,7 +64,21 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    Python oracle of the default chain (correct/reference.py), the judge
    independent of both;
 9. the first slice's path, `-c one`, on the first 500 reads, with its own
-   launch counts, fallback limit and oracle check.
+   launch counts, fallback limit and oracle check;
+10. k = 17 (k17_path): K8 at k = 17 against its plain build on the first
+   200 reads (set bits compared on the card), and K8's count and pack
+   kernels against their plain versions on the whole corpus (the first
+   of the build's 8 partitions, the pack timed clearing, as 7 of the
+   build's 8 launches are, and leaving, as its last); the default chain at
+   k = 17 through the CLI's entry points (`fasta -k 17 -a 2`: the 1 GiB
+   set built by K8 over the whole corpus in partitions of 2^30 counts,
+   then the whole corpus corrected), with count_s, correct_s, reads/s,
+   rest_s, fallbacks, wide retries and the peak device memory, failing
+   on a kernel not launched or more than 5 % fallbacks; the 64-bit K1,
+   K2, K5, K6 (both modes, walk_max 248 and 2040) and K7 (ms 7, and 14
+   and 15 on the first chunk) on its first chunk and its first retry
+   chunk, each held exactly against its plain version (run once) and
+   timed as in 4; its output check, as in 8, at k = 17.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
@@ -87,6 +107,9 @@ N_READS, GENOME, MEAN_LEN, MAX_LEN, SEED = 2000, 2_000_000, 12000, 62000, 42
 #: reads of the corpus the `-c one` path corrects
 N_ONE = 500
 SAMPLE = 100
+#: reads of the corpus the k = 17 path corrects, and its oracle sample;
+#: reads K8 is checked on at k = 17
+N17, SAMPLE17, K8_READS = 2000, 100, 200
 MAX_FALLBACK = 0.05
 #: peak device memory bandwidth of an H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -106,6 +129,10 @@ KERNEL_META = {
                    "br_tpu/correct/engine3.py:1179"),
     "greedy_sites": ("br_tpu_torch/csrc/greedy_sites.cu",
                      "br_tpu/correct/engine3.py:719"),
+    "solid_count": ("br_tpu_torch/csrc/solid_build.cu",
+                    "br_tpu/set/device_build.py:109"),
+    "solid_pack": ("br_tpu_torch/csrc/solid_build.cu",
+                   "br_tpu/set/device_build.py:109"),
 }
 
 
@@ -251,17 +278,19 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
 
 
 def load_baseline(csrc):
-    """K2, K5 and K4 as built from another tree's ``csrc`` (the parent
-    commit's: ``git archive <commit> br_tpu_torch/csrc``), those whose
-    source or headers differ from this tree's, called through this tree's
-    wrappers (their C entry points did not change).  Built with this
-    tree's nvcc flags, one nvcc each, all at once; their calls are not
-    counted in kernels.LAUNCHES.  Returns {kernel name: function with the
-    arguments of the kernel's wrapper}."""
+    """K1, K2, K5, K6, K7, K3 and K4 (their 32-bit instantiations, k <= 15)
+    as built from another tree's ``csrc`` (the parent commit's: ``git
+    archive <commit> br_tpu_torch/csrc``), those whose source or headers
+    differ from this tree's, called through this tree's wrappers (their C
+    entry points did not change).  Built with this tree's nvcc flags, one
+    nvcc each, all at once; their calls are not counted in
+    kernels.LAUNCHES.  Returns {kernel name: function with the arguments
+    of the kernel's wrapper}."""
     from pathlib import Path
 
     from br_tpu_torch import kernels
-    from br_tpu_torch.correct import reverse, sites, two
+    from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
+                                      two, walk)
 
     def sources(d, name):
         d = Path(d)
@@ -269,7 +298,11 @@ def load_baseline(csrc):
                                          + [d / kernels.KERNELS[name][0]])]
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    wrappers = {"one_sites": sites.one_sites, "two_sites": two.two_sites,
+    wrappers = {"dense_probe": probe.dense_probe,
+                "one_sites": sites.one_sites, "two_sites": two.two_sites,
+                "walk_sites": walk.walk_sites,
+                "greedy_sites": greedy.greedy_sites,
+                "chain_splice": splice.chain_splice,
                 "reverse_slots": reverse.reverse_slots}
     for name in list(wrappers):
         if sources(csrc, name) == sources(kernels.CSRC, name):
@@ -289,13 +322,7 @@ def load_baseline(csrc):
         log_, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
         lib = ctypes.CDLL(str(out))
-        entry, sig = kernels.KERNELS[name][1:]
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p if ch == "p" else ctypes.c_int
-                       for ch in sig]
-        fn.restype = ctypes.c_int
-        lib.br_error_string.argtypes = [ctypes.c_int]
-        lib.br_error_string.restype = ctypes.c_char_p
+        kernels.bind(lib, [name])
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -303,13 +330,15 @@ def load_baseline(csrc):
 
     def through(name, wrapper):
         """The wrapper, launching the baseline library."""
+        src = kernels.KERNELS[name][0]
+
         def call(*args):
-            own, count = kernels._LIBS.get(name), kernels.LAUNCHES[name]
-            kernels._LIBS[name] = libs[name]
+            own, count = kernels._LIBS.get(src), kernels.LAUNCHES[name]
+            kernels._LIBS[src] = libs[name]
             try:
                 return wrapper(*args)
             finally:
-                kernels._LIBS[name] = own
+                kernels._LIBS[src] = own
                 kernels.LAUNCHES[name] = count
         return call
 
@@ -482,7 +511,7 @@ def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
 
 
 def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
-                  reps=10, plain_reps=2, baseline=None):
+                  reps=10, plain_reps=2, baseline=None, full=True):
     """Kernels against their plain versions on one chunk: on the first
     chunk K1-K7 at the default walk profile; on a retry chunk
     (``kind="retry"``) K1, K2, K5, K6 in both modes at walk_max 2040, K3
@@ -490,13 +519,16 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     long-walk chunk (``kind="long"``) K6 in both modes at walk_max 248
     and 2040 and K3 on their records.  With ``plain_reps`` 0 a plain
     version runs once: its time is that call's, and a walk's is the
-    chain-floor run.  ``baseline`` (from load_baseline) gives K2, K5 and
-    K4 as another tree built them: each is checked and timed beside this
-    tree's.  Returns {name: {ms,
-    plain_ms, bound_ms, max_abs_err, ...}}; names with a bracket are a
-    kernel's further configurations."""
+    chain-floor run.  ``baseline`` (from load_baseline) gives K1-K7 as
+    another tree built them: each is checked and timed beside this tree's.
+    At k = 17 the k-mer kernels are their 64-bit instantiations (names
+    ``<name>64``).  Without ``full`` (the k = 17 checks) the chain floors
+    and K3 and K4, which carry codes and do not change with k, are left
+    out.  Returns {name: {ms, plain_ms, bound_ms, max_abs_err, ...}};
+    names with a bracket are a kernel's further configurations."""
     import torch
 
+    from br_tpu_torch import kernels
     from br_tpu_torch.correct import device_codec as dc
     from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
                                       two, walk)
@@ -511,6 +543,10 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     rl = torch.from_numpy(rlen).to(device)
     base = baseline or {}
     res = {}
+
+    def w(name):
+        """The instantiation of a k-mer kernel for this k."""
+        return kernels.width(name, k)
 
     def based(name, *args):
         """The baseline's call of kernel ``name`` on args, or None."""
@@ -563,6 +599,8 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         return out
 
     def log_floor(name):
+        if name not in floors:
+            return
         o, n, longest = floors[name]
         res[name].update(floor_old=o, floor_new=n)
         log(f"  {name}: chain floor {o} dependent round trips one thread a "
@@ -579,10 +617,12 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     n_eff = min(int(d_plain.n_sites[0]), NS)
     k1_bytes = (CHUNK + 8 * R + 4 * words
                 + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    k1_name = {"first": "dense_probe", "retry": "dense_probe[retry chunk]",
-               "long": "dense_probe[long-walk chunk]"}[kind]
+    k1_bytes += CHUNK * (dc.kmer_dtype(k).itemsize - 4)
+    k1_name = w("dense_probe") + {"first": "", "retry": "[retry chunk]",
+                                  "long": "[long-walk chunk]"}[kind]
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
-            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20)
+            lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20,
+            kb=based("dense_probe", *d_args) if k <= 15 else None)
 
     def site_run(name, kern, plain, window, kreps=reps, kb=None):
         """A site kernel, compared on the entries it writes; its bytes
@@ -597,16 +637,20 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         # the walk scans V to the error's end
         where = {"first": "", "retry": "retry chunk,",
                  "long": "long-walk chunk,"}[kind]
-        name = ("walk_sites" if (kind, wm, st) == ("first", WALK_MAX, "graph")
-                else f"walk_sites[{where}{st},walk_max={wm}]")
+        name = (w("walk_sites") if (kind, wm, st) == ("first", WALK_MAX,
+                                                      "graph")
+                else f"{w('walk_sites')}[{where}{st},walk_max={wm}]")
         f_args = (name, st, table, codes, d, rs, rl, k, c, ms)
-        if plain_reps:
+        if not full:
+            plain = lambda: walk.walk_sites_plain(*w_args)  # noqa: E731
+        elif plain_reps:
             plain = lambda: walk.walk_sites_plain(*w_args)  # noqa: E731
             floor(*f_args, walk_max=wm)
         else:   # one plain run: the reference, its time and the floor
             plain = lambda: floor(*f_args, walk_max=wm)  # noqa: E731
         out = site_run(name, lambda: walk.walk_sites(*w_args), plain,
-                       3 * k + c, 3)
+                       3 * k + c, 3,
+                       kb=based("walk_sites", *w_args) if k <= 15 else None)
         used = out.rec_p < BIG
         log(f"  {name}: {int(used.sum())} records, longest emit "
             f"{int(out.rec_c[used].max()) if bool(used.any()) else 0} "
@@ -631,7 +675,8 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         nbytes = (int(x_plain.out_len.sum()) + 9 * R + 12 * n_eff
                   + 12 * n_rec + 4 * rec_w + CHUNK + 9 * R + 32)
         run(name, lambda: splice.chain_splice(*x_args),
-            lambda: splice.chain_splice_plain(*x_args), nbytes, 20)
+            lambda: splice.chain_splice_plain(*x_args), nbytes, 20,
+            kb=based("chain_splice", *x_args))
         longest, most = int(rl.argmax()), int(visits.argmax())
         log(f"  {name}: {res[name]['ms']:.4f} ms; longest read "
             f"{int(rl[longest])} bases, {int(listed[longest])} listed "
@@ -644,15 +689,20 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     s_args = (table, codes, d.kmers, d.s_pos, d.n_sites, rs, rl, k)
     if kind != "long":
         tag = "" if kind == "first" else "[retry chunk]"
-        s = site_run("one_sites" + tag, lambda: sites.one_sites(*s_args, c),
+        s = site_run(w("one_sites") + tag,
+                     lambda: sites.one_sites(*s_args, c),
                      lambda: sites.one_sites_plain(*s_args, c), c + 3 + k,
                      20, kb=based("one_sites", *s_args, c))
-        floor("one_sites" + tag, "one", table, codes, d, rs, rl, k, c, ms)
+        if full:
+            floor("one_sites" + tag, "one", table, codes, d, rs, rl, k, c,
+                  ms)
         log_floor("one_sites" + tag)
-        site_run("two_sites" + tag, lambda: two.two_sites(*s_args, c),
+        site_run(w("two_sites") + tag, lambda: two.two_sites(*s_args, c),
                  lambda: two.two_sites_plain(*s_args, c), c + 6 + k, 20,
                  kb=based("two_sites", *s_args, c))
-        floor("two_sites" + tag, "two", table, codes, d, rs, rl, k, c, ms)
+        if full:
+            floor("two_sites" + tag, "two", table, codes, d, rs, rl, k, c,
+                  ms)
         log_floor("two_sites" + tag)
 
     # K4: the chunk in and out, the slot table in
@@ -664,13 +714,22 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
 
     if kind != "first":
         tag = "retry chunk" if kind == "retry" else "long-walk chunk"
-        for wm in (WIDE_WALK_MAX,) if kind == "retry" else (WALK_MAX,
-                                                            WIDE_WALK_MAX):
+        # the k = 17 retry chunk: both walk profiles
+        profiles = ((WIDE_WALK_MAX,) if kind == "retry" and full
+                    else (WALK_MAX, WIDE_WALK_MAX))
+        for wm in profiles:
             for st in ("graph", "gap-size"):
-                w = walk_run(st, wm)
-                k3(f"chain_splice[{tag},{st} records,walk_max={wm}]", w)
-        if kind == "retry":   # the chain reverses the chunk as it came in
+                wo = walk_run(st, wm)
+                if full:
+                    k3(f"chain_splice[{tag},{st} records,walk_max={wm}]",
+                       wo)
+        if kind == "retry" and full:   # the chunk as it came in
             k4("reverse_slots[retry chunk]", codes, rs, rl)
+        if not full:
+            site_run(f"{w('greedy_sites')}[{tag}]",
+                     lambda: greedy.greedy_sites(*s_args, ms, c),
+                     lambda: greedy.greedy_sites_plain(*s_args, ms, c),
+                     ms + c + k, 3)
         log(f"{tag}: {int((rl > 0).sum())} reads, {int(rl.sum())} bases, "
             f"{int(d.n_sites[0])} sites")
         return res
@@ -678,11 +737,24 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     # the walks and greedy on K1's output
     g = walk_run("graph", WALK_MAX)
     walk_run("gap-size", WALK_MAX)
-    site_run("greedy_sites", lambda: greedy.greedy_sites(*s_args, ms, c),
+    site_run(w("greedy_sites"), lambda: greedy.greedy_sites(*s_args, ms, c),
              lambda: greedy.greedy_sites_plain(*s_args, ms, c), ms + c + k,
-             3)
-    floor("greedy_sites", "greedy", table, codes, d, rs, rl, k, c, ms)
+             3, kb=based("greedy_sites", *s_args, ms, c))
+    if full:
+        floor("greedy_sites", "greedy", table, codes, d, rs, rl, k, c, ms)
     log_floor("greedy_sites")
+    if not full:
+        for wm in (WIDE_WALK_MAX,):   # the wide profile on this chunk too
+            for st in ("graph", "gap-size"):
+                walk_run(st, wm)
+        for ms_ in (14, 15):   # 32 and 33 DP columns at k = 17
+            site_run(f"{w('greedy_sites')}[ms={ms_}]",
+                     lambda: greedy.greedy_sites(*s_args, ms_, c),
+                     lambda: greedy.greedy_sites_plain(*s_args, ms_, c),
+                     ms_ + c + k, 3)
+        log(f"first chunk at k={k}: {int((rl > 0).sum())} reads, "
+            f"{int(rl.sum())} bases, {int(d.n_sites[0])} sites")
+        return res
     x, n_rec = k3("chain_splice", s)
     k3("chain_splice[graph records]", g)
 
@@ -791,13 +863,21 @@ def cap_reasons(kept):
     return out
 
 
-def drive(args, solid, corrector, sync):
-    """One path through the CLI's entry points, launch counts set to 0
-    just before and read just after."""
-    from br_tpu_torch import kernels, runtime
+def drive(args, make, sync):
+    """One path through the CLI's entry points (build_set, then the
+    corrector ``make(solid)`` gives, then run_correction), launch counts
+    set to 0 just before and read just after.  Returns the solid set, the
+    corrector, the records written, count_s, correct_s and the launch
+    counts."""
+    from br_tpu_torch import cli, kernels, runtime
 
     kernels.reset_launches()
     sync()
+    t0 = time.perf_counter()
+    solid = cli.build_set(args)
+    sync()
+    count_s = time.perf_counter() - t0
+    corrector = make(solid)
     t0 = time.perf_counter()
     n = runtime.run_correction(args.inputs, args.outputs, solid,
                                args.corrections, args.confirm,
@@ -806,38 +886,184 @@ def drive(args, solid, corrector, sync):
                                line_width=args.line_width,
                                corrector=corrector)
     sync()
-    return n, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+    return (solid, corrector, n, count_s, time.perf_counter() - t0,
+            dict(kernels.LAUNCHES))
 
 
-def oracle_check(label, out, seqs, chain, solid, host):
-    """A seeded sample of SAMPLE reads plus every host-corrected read
-    against the port's oracle of ``chain``."""
+def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
+    """A seeded sample of ``sample`` (SAMPLE) reads plus every
+    host-corrected read against the port's oracle of ``chain`` at k."""
+    from br_tpu_torch.correct.engine3 import host_set
     from br_tpu_torch.correct.reference import build_methods, correct_read
     from br_tpu_torch.io.fasta import read_records
 
     got = [s for _d, s, _q in read_records(out)]
     check(len(got) == len(seqs), f"{label}: output record count")
     rng = np.random.default_rng(SEED)
-    sample = set(rng.choice(len(seqs), SAMPLE, replace=False).tolist())
-    sample |= set(host)
+    picked = set(rng.choice(len(seqs), SAMPLE if sample is None else sample,
+                            replace=False).tolist())
+    picked |= set(host)
+    solid = host_set(solid)
+    check(solid.k == k, f"{label}: the set's k is {solid.k}, not {k}")
     methods = build_methods(chain, solid, C, MS)
     t0 = time.perf_counter()
-    bad = [i for i in sorted(sample)
+    bad = [i for i in sorted(picked)
            if got[i] != correct_read(seqs[i], methods, two_side=False)]
     check(not bad, f"{label}: {len(bad)} sampled reads differ from the "
                    f"oracle (first {bad[:5]})")
-    changed = sum(got[i] != seqs[i] for i in sample)
-    log(f"{label} oracle check: {len(sample)} reads equal ({changed} "
+    changed = sum(got[i] != seqs[i] for i in picked)
+    log(f"{label} oracle check: {len(picked)} reads equal ({changed} "
         f"corrected), {time.perf_counter() - t0:.1f} s")
 
 
+def solid_checks(seqs, k, device, sync, reps=10):
+    """K8 on the card against its plain versions, on ``seqs`` at k: K8a
+    counting into the build's first partition of the half-space (its
+    k-mers by a plain run, the count arrays compared exactly), K8b
+    packing that partition (words compared exactly); each timed as the
+    kernel checks time them, with its bound and, for K8a, the library
+    call on the same canonical k-mers (torch.unique with counts, the
+    host in the loop: it synchronises).  K8b is timed as the build
+    launches it: clearing the counts behind it where more partitions
+    follow (k = 17: 7 of 8 launches, the entry ``solid_pack[k=17]``;
+    its last launch, which leaves them, is logged beside it), and
+    leaving them where the partition is the only one (k <= 15).
+    Returns {name: {...}}."""
+    import torch
+
+    from br_tpu_torch import kernels
+    from br_tpu_torch.set import device_build as db
+
+    p = db.pack_reads(seqs, k, device)
+    psize = db.partition_size(k, db.DEFAULT_MAX_COUNT_BYTES)
+    nparts = -(-(1 << (2 * k - 1)) // psize)
+    idx = db.canonical_index(p, k)
+    local = idx[idx < psize]
+    distinct = int(torch.unique(local).numel())
+    counts = torch.zeros(psize, dtype=torch.int32, device=device)
+    want = torch.zeros_like(counts)
+    db.count_kmers_plain(p, k, 0, want)
+    db.count_kmers(p, k, 0, counts)
+    sync()
+    check(torch.equal(counts, want), f"K8a at k={k}: counts differ")
+    res = {}
+    name = kernels.width("solid_count", k)
+    t0 = time.perf_counter()
+    db.count_kmers_plain(p, k, 0, want)
+    sync()
+    del want
+    nbytes = p.codes.numel() + 8 * p.starts.numel() + 8 * distinct
+    res[name] = {
+        "ms": cuda_ms(lambda: db.count_kmers(p, k, 0, counts), reps, sync,
+                      queued=True),
+        "plain_ms": (time.perf_counter() - t0) * 1e3,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0,
+        "library_ms": cuda_ms(lambda: torch.unique(local,
+                                                   return_counts=True),
+                              reps, sync)}
+    del idx, local
+    words = torch.empty(psize // 32, dtype=torch.int32, device=device)
+    wplain = torch.empty_like(words)
+    db.threshold_pack(counts, 2, words, clear=False)
+    t0 = time.perf_counter()
+    db.threshold_pack_plain(counts, 2, wplain, clear=False)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(words, wplain), f"K8b at k={k}: words differ")
+    del wplain
+
+    def pack_bound(clear):
+        # read each count once, write each word once; the clear writes
+        # the counts back
+        return ((4 + 4 * clear) * psize + psize // 8) / HBM_BYTES_PER_S * 1e3
+
+    keep_ms = cuda_ms(lambda: db.threshold_pack(counts, 2, words,
+                                                clear=False),
+                      reps, sync, queued=True)
+    if nparts == 1:
+        res["solid_pack"] = {"ms": keep_ms, "plain_ms": plain_ms,
+                             "max_abs_err": 0, "clear": False,
+                             "bound_ms": pack_bound(False),
+                             "library_ms": None}
+    else:
+        res["solid_pack[k=17]"] = {
+            "ms": cuda_ms(lambda: db.threshold_pack(counts, 2, words,
+                                                    clear=True),
+                          reps, sync, queued=True),
+            "plain_ms": plain_ms, "max_abs_err": 0, "clear": True,
+            "bound_ms": pack_bound(True), "library_ms": None,
+            "last_partition_ms": keep_ms,
+            "last_partition_bound_ms": pack_bound(False)}
+        check(not counts.any(), f"K8b at k={k}: the counts were not "
+                                "cleared")
+    for nm, r in res.items():
+        log(f"kernel {nm}: " + json.dumps(
+            {"kernel": nm, "k": k, "reads": len(seqs), "bases": p.n_bases,
+             "partition_counts": psize, "partitions": nparts,
+             "distinct_kmers": distinct, "kernel_ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "library_ms": r["library_ms"],
+             "ms_over_bound": r["ms"] / r["bound_ms"],
+             **{key: r[key] for key in ("clear", "last_partition_ms",
+                                        "last_partition_bound_ms")
+                if key in r}}))
+    return res
+
+
+def path_report(label, args, solid, corrector, n, count_s, correct_s,
+                launches, inst, n_bases, card, need):
+    """Log a main path's numbers; fail on a kernel of ``need`` not
+    launched, on a record count other than the input's or on more than
+    MAX_FALLBACK of the reads on the host."""
+    kept, oracle_s = inst["kept"], inst["oracle_s"]
+    st = corrector.last_stats
+    reasons = cap_reasons(kept)
+    log(f"{label} cap reasons: " + json.dumps(reasons))
+    device_s = sum(r["device_s"] for r in reasons.values())
+    engine = corrector._engine
+    log(f"{label}: " + json.dumps({
+        "chain": args.corrections, "k": solid.k, "card": card, "reads": n,
+        "bases": n_bases, "solid_frac": solid.count_ones() / float(
+            1 << (2 * solid.k - 1)),
+        "count_s": count_s, "correct_s": correct_s,
+        "reads_per_s": n / correct_s, "bases_per_s": n_bases / correct_s,
+        "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
+        "rest_s": correct_s - device_s - sum(oracle_s),
+        "host_engine": None if engine is None else {
+            "name": type(engine).__name__,
+            "library": os.path.basename(engine._lib._name),
+            "threads": engine.threads, "calls": len(oracle_s)},
+        "last_stats": st, "launches": launches}))
+    for name in need:
+        check(launches[name] > 0,
+              f"{label}: kernel {name} was not launched")
+    frac = st["fallback"] / max(1, st["total"])
+    check(frac <= MAX_FALLBACK,
+          f"{label}: {st['fallback']} of {st['total']} reads went to the "
+          f"host (> {MAX_FALLBACK:.0%})")
+    return device_s
+
+
+#: the kernels each path launches
+NEED13 = ("dense_probe", "one_sites", "two_sites", "walk_sites",
+          "greedy_sites", "chain_splice", "reverse_slots", "solid_count",
+          "solid_pack")
+NEED17 = ("dense_probe64", "one_sites64", "two_sites64", "walk_sites64",
+          "greedy_sites64", "chain_splice", "reverse_slots", "solid_count64",
+          "solid_pack")
+
+
 def main_path(workdir, device, sync, card, build, base_dir=None):
-    """Corpus, kernel checks, the default-chain CLI path and its output
-    check, then the `-c one` path.  ``build`` is called before the first
-    kernel is needed; ``base_dir`` is a baseline's csrc directory or
-    None.  Returns the per-kernel summary entries."""
-    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, kernels, runtime
+    """Corpus, the k = 13 solid set on the host and by K8, kernel checks,
+    the default-chain CLI path and its output check, then the `-c one`
+    path, then the k = 17 phases (k17_path).  ``build`` is called before
+    the first kernel is needed; ``base_dir`` is a baseline's csrc
+    directory or None.  Returns the per-kernel summary entries."""
+    import torch
+
+    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
     from br_tpu_torch.corpus import write_corpus
+    from br_tpu_torch.count import Counter
     from br_tpu_torch.io.fasta import read_records
 
     fa = os.path.join(workdir, "reads.fa")
@@ -846,57 +1072,56 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     n_bases = write_corpus(fa, N_READS, GENOME, MEAN_LEN, MAX_LEN, SEED)
     log(f"corpus: {N_READS} reads, {n_bases} bases "
         f"({time.perf_counter() - t0:.1f} s)")
+    seqs = [s for _d, s, _q in read_records(fa)]
 
     # no -c: the default chain
     argv = ["-i", fa, "-o", out, "fasta", "-i", fa, "-k", str(K), "-a", "2"]
     args = cli.build_parser().parse_args(argv)
     args.corrections = args.corrections or list(DEFAULT_CORRECTIONS)
+    # the set of `fasta -k 13 -a 2` on the host (Counter), as the CLI
+    # built it before K8, and by K8 (build_set): the same bits
     t0 = time.perf_counter()
-    solid = cli.build_set(args)
-    count_s = time.perf_counter() - t0
-    solid_frac = solid.count_ones() / float(1 << (2 * K - 1))
-    corrector = runtime.make_corrector(solid, args.corrections, args.confirm,
-                                       args.max_search, device=device)
-    seqs = [s for _d, s, _q in read_records(fa)]
-    idxs, starts = corrector._plan(seqs, set(), set())[0]
-    first = corrector._chunk_arrays(seqs, idxs, starts)
-
+    host_solid = Counter(K).count_sequences(seqs).to_solid(2)
+    count_host_s = time.perf_counter() - t0
     build()
-    baseline = load_baseline(base_dir) if base_dir else None
-    checks = kernel_checks(corrector.table, first, K, C, MS, device, sync,
-                           baseline=baseline)
+    t0 = time.perf_counter()
+    dsolid = cli.build_set(args)
+    sync()
+    count_dev_s = time.perf_counter() - t0
+    check(torch.equal(dsolid.words, host_solid.device_words(device)),
+          "K8 at k=13: the device set differs from Counter.to_solid(2)")
+    log("K8 set check: " + json.dumps({
+        "k": K, "a": 2, "reads": N_READS, "bases": n_bases,
+        "solid_kmers": host_solid.count_ones(), "equal": True,
+        "count_s_host": count_host_s, "count_s_device": count_dev_s}))
+    planner = runtime.make_corrector(dsolid, args.corrections, args.confirm,
+                                     args.max_search, device=device)
+    idxs, starts = planner._plan(seqs, set(), set())[0]
+    first = planner._chunk_arrays(seqs, idxs, starts)
 
-    kept, oracle_s, retry = instrument(corrector)
-    engine = corrector.native_engine()  # built beside the kernels
-    n, correct_s, launches = drive(args, solid, corrector, sync)
-    st = corrector.last_stats
-    # upper estimate of the kernels' share: every call costed at the
-    # first chunk's time (retry chunks are smaller; walk_sites at the
-    # graph default-profile time)
-    kernel_s = sum(launches[m] / kernels.PER_CALL.get(m, 1) * checks[m]["ms"]
-                   for m in launches) / 1e3
-    reasons = cap_reasons(kept)
-    log("cap reasons: " + json.dumps(reasons))
-    device_s = sum(r["device_s"] for r in reasons.values())
-    log("main path: " + json.dumps({
-        "chain": args.corrections, "card": card, "reads": n,
-        "bases": n_bases, "solid_frac": solid_frac, "count_s": count_s,
-        "correct_s": correct_s, "reads_per_s": n / correct_s,
-        "bases_per_s": n_bases / correct_s, "kernel_s_est": kernel_s,
-        "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
-        "rest_s": correct_s - device_s - sum(oracle_s),
-        "host_engine": {"name": type(engine).__name__,
-                        "library": os.path.basename(engine._lib._name),
-                        "threads": engine.threads,
-                        "calls": len(oracle_s)},
-        "last_stats": st, "launches": launches}))
+    baseline = load_baseline(base_dir) if base_dir else None
+    checks = kernel_checks(dsolid.words, first, K, C, MS, device, sync,
+                           baseline=baseline)
+    checks.update(solid_checks(seqs, K, device, sync))
+
+    inst = {}
+
+    def make(a):
+        def fn(solid):
+            cor = runtime.make_corrector(solid, a.corrections, a.confirm,
+                                         a.max_search, device=device)
+            inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+            return cor
+        return fn
+
+    solid, corrector, n, count_s, correct_s, launches = drive(
+        args, make(args), sync)
     check(n == N_READS, f"wrote {n} records, expected {N_READS}")
-    for name, cnt in launches.items():
-        check(cnt > 0, f"kernel {name} was not launched on the main path")
-    frac = st["fallback"] / max(1, st["total"])
-    check(frac <= MAX_FALLBACK,
-          f"{st['fallback']} of {st['total']} reads went to the host "
-          f"(> {MAX_FALLBACK:.0%})")
+    path_report("main path", args, solid, corrector, n, count_s, correct_s,
+                launches, inst, n_bases, card, NEED13)
+    log(f"count_s: {count_s:.3f} s by K8 on the card against "
+        f"{count_host_s:.3f} s by the host Counter (phase 3)")
+    retry = inst["retry"]
     check(bool(retry), "the main path retried no chunk on the wide sibling")
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
                                 sync, kind="retry", baseline=baseline))
@@ -916,39 +1141,123 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     args1 = cli.build_parser().parse_args(
         ["-i", fa1, "-o", out1, "-c", "one", "fasta", "-i", fa, "-k",
          str(K), "-a", "2"])
-    one = runtime.make_corrector(solid, args1.corrections, args1.confirm,
-                                 args1.max_search, device=device)
-    n1, one_s, launches1 = drive(args1, solid, one, sync)
+    solid1, one, n1, _c1, one_s, launches1 = drive(args1, make(args1), sync)
     st1 = one.last_stats
     log("-c one path: " + json.dumps({
         "reads": n1, "correct_s": one_s, "reads_per_s": n1 / one_s,
         "last_stats": st1, "launches": launches1}))
     check(n1 == N_ONE, f"-c one wrote {n1} records, expected {N_ONE}")
     for name in ("dense_probe", "one_sites", "chain_splice",
-                 "reverse_slots"):
+                 "reverse_slots", "solid_count", "solid_pack"):
         check(launches1[name] > 0, f"-c one: kernel {name} not launched")
     check(st1["fallback"] / max(1, st1["total"]) <= MAX_FALLBACK,
           f"-c one: {st1['fallback']} of {st1['total']} reads to the host")
-    oracle_check("-c one", out1, seqs[:N_ONE], ["one"], solid, one.last_host)
+    oracle_check("-c one", out1, seqs[:N_ONE], ["one"], solid1,
+                 one.last_host)
+    del planner, dsolid, solid, corrector, solid1, one
+    torch.cuda.empty_cache()
 
+    checks17, launches17 = k17_path(workdir, fa, seqs, n_bases, device, sync,
+                                    card)
+    checks.update(checks17)
     entries = []
     for name, (source, replaces) in KERNEL_META.items():
-        r = checks[name]
-        entries.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+        # a kernel's k = 17 entry: its 64-bit instantiation, or (K8b,
+        # which holds no k-mer) the same kernel's k = 17 launches
+        for nm, cnt, key in ((name, launches, name),
+                             (name + "64", launches17, name + "64"),
+                             (name + "[k=17]", launches17, name)):
+            if nm not in checks:
+                continue
+            r = checks[nm]
+            entries.append({
+                "name": nm, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": cnt[key],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes", "library_ms": r.get("library_ms")})
     return entries
+
+
+def k17_path(workdir, fa, seqs, n_bases, device, sync, card):
+    """The k = 17 phases: K8 against its plain build on the first K8_READS
+    reads (the set-bit words compared on the card) and K8a/K8b against
+    their plain versions on the whole corpus; the k = 17 default chain
+    through the CLI's entry points over the first N17 reads (the set
+    built by K8 over the whole corpus), with its numbers and peak device
+    memory; the 64-bit kernels against their plain versions on its first
+    chunk and its first retry chunk; its output check.  Returns (checks,
+    launch counts of the path)."""
+    import torch
+
+    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
+    from br_tpu_torch.set import device_build as db
+
+    k = 17
+    few = seqs[:K8_READS]
+    batches = [db.pack_reads(few, k, device)]
+    got = db.build_words(batches, k, 2)
+    want = db.solid_words_plain(batches, k, 2)
+    nz = torch.nonzero(want).squeeze(1)
+    check(torch.equal(torch.nonzero(got).squeeze(1), nz)
+          and torch.equal(got[nz], want[nz]),
+          "K8 at k=17: the set differs from the plain build")
+    log("K8 set check: " + json.dumps({
+        "k": k, "a": 2, "reads": len(few), "nonzero_words": int(nz.numel()),
+        "solid_kmers": db.popcount_words(want), "equal": True}))
+    del got, want, nz
+    checks = solid_checks(seqs, k, device, sync)
+
+    fa17 = os.path.join(workdir, "reads17.fa")
+    out17 = os.path.join(workdir, "out17.fa")
+    with open(fa17, "wb") as fh:
+        for i, s in enumerate(seqs[:N17]):
+            fh.write(b">r%d\n%s\n" % (i, s))
+    args = cli.build_parser().parse_args(
+        ["-i", fa17, "-o", out17, "fasta", "-i", fa, "-k", str(k), "-a",
+         "2"])
+    args.corrections = args.corrections or list(DEFAULT_CORRECTIONS)
+    inst = {}
+
+    def make(solid):
+        cor = runtime.make_corrector(solid, args.corrections, args.confirm,
+                                     args.max_search, device=device)
+        inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+        return cor
+
+    torch.cuda.reset_peak_memory_stats()
+    solid, corrector, n, count_s, correct_s, launches = drive(args, make,
+                                                              sync)
+    peak = torch.cuda.max_memory_allocated()
+    check(n == N17, f"k=17 wrote {n} records, expected {N17}")
+    n17_bases = sum(len(s) for s in seqs[:N17])
+    path_report(f"k=17 path ({N17} of {N_READS} reads corrected, the set "
+                f"from all {N_READS})", args, solid, corrector, n, count_s,
+                correct_s, launches, inst, n17_bases, card, NEED17)
+    log("k=17 device memory: " + json.dumps({
+        "max_memory_allocated": peak,
+        "table_bytes": solid.words.numel() * 4,
+        "count_partition_bytes": 4 * db.partition_size(
+            k, db.DEFAULT_MAX_COUNT_BYTES)}))
+    idxs, starts = corrector._plan(seqs[:N17], set(), set())[0]
+    first = corrector._chunk_arrays(seqs[:N17], idxs, starts)
+    checks.update(kernel_checks(corrector.table, first, k, C, MS, device,
+                                sync, plain_reps=0, full=False))
+    check(bool(inst["retry"]), "the k=17 path retried no chunk")
+    checks.update(kernel_checks(corrector.table, inst["retry"][0], k, C, MS,
+                                device, sync, kind="retry", plain_reps=0,
+                                full=False))
+    oracle_check("k=17 default chain", out17, seqs[:N17], args.corrections,
+                 solid, corrector.last_host, k=k, sample=SAMPLE17)
+    return checks, launches
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CSRC_DIR",
-                    help="also check and time K2, K5 and K4 as built from "
-                         "this directory, those whose sources differ from "
-                         "this tree's (the parent commit's csrc: git "
+                    help="also check and time K1-K7 at k = 13 as built "
+                         "from this directory, those whose sources differ "
+                         "from this tree's (the parent commit's csrc: git "
                          "archive <commit> br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
@@ -998,15 +1307,19 @@ def main():
                 th.join()
             if "err" in built:
                 raise SmokeFailure(f"build failed: {built['err']}")
-            log(f"build: {len(kernels.KERNELS)} kernels in "
-                f"{built['s']:.1f} s (nvcc in parallel); the native host "
-                f"engine {os.path.basename(built['native'])} in "
+            log(f"build: {len(kernels.KERNELS)} kernels from "
+                f"{len(kernels.sources())} sources in {built['s']:.1f} s "
+                f"(nvcc in parallel); the native host engine "
+                f"{os.path.basename(built['native'])} in "
                 f"{built['native_s']:.1f} s (g++, beside them)")
-            for name, rep in kernels.BUILD_LOG.items():
-                regs = [ln.split(":", 1)[-1].strip()
-                        for ln in rep.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                log(f"  ptxas {name}: {' | '.join(regs)}")
+            for src, rep in kernels.BUILD_LOG.items():
+                fn = ""
+                for ln in rep.splitlines():   # per instantiation
+                    if "Function properties for" in ln:
+                        fn = ln.split("for", 1)[1].strip()
+                    elif "registers" in ln or "spill" in ln:
+                        log(f"  ptxas {src} {fn}: "
+                            f"{ln.split(':', 1)[-1].strip()}")
 
         device = torch.device("cuda")
         with tempfile.TemporaryDirectory() as work:

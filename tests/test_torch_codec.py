@@ -41,7 +41,7 @@ def test_rolling_kmers_match_jax():
     codes = rng.integers(0, 4, size=(3, 300), dtype=np.uint8)
     for k in (5, 11, 13, 15):
         want = np.asarray(jdc.rolling_kmers32(jnp.asarray(codes), k))
-        got = tdc.rolling_kmers32(torch.from_numpy(codes), k)
+        got = tdc.rolling_kmers(torch.from_numpy(codes), k)
         assert np.array_equal(got.numpy(), want.astype(np.int64))
 
 
@@ -96,3 +96,44 @@ def test_solid_set_copy_matches_original():
     b.to_stream(buf)
     buf.seek(0)
     assert np.array_equal(JSolidSet.from_stream(buf).bits, a.bits)
+
+
+def _top_kmers(k, n=4096, seed=0):
+    """Random 2k-bit k-mers, the first quarter with the top bits set (the
+    group swaps move them to bit 63 and back)."""
+    km = _rand_kmers(k, n, seed)
+    top = np.uint64(((1 << (2 * k)) - 1) ^ ((1 << (2 * k - 4)) - 1))
+    km[: n // 4] |= top
+    return km
+
+
+def test_revcomp_canonical_64_match_jax_and_host():
+    """k = 17 in 64-bit math: br_tpu's canonical_any (u64) and the host
+    codec's canonical_np give the port's, k-mers with bit 33 set among
+    them; parity64 and revcomp64 agree with the 32-bit forms below k =
+    16."""
+    from br_tpu_torch import codec
+
+    for k in (17, 19, 31):
+        km = _top_kmers(k, seed=k)
+        want = codec.canonical_np(km, k).astype(np.int64)
+        got = tdc.canonical_any(_t(km.astype(np.int64)), k).numpy()
+        assert np.array_equal(got, want)
+        if k == 17:
+            j = np.asarray(jdc.canonical_any(jnp.asarray(km), k))
+            assert np.array_equal(got, j.astype(np.int64))
+            assert (got >> 33).any() and (got < 0).sum() == 0
+    for k in (3, 13, 15):
+        km = _t(_top_kmers(k, seed=k))
+        assert torch.equal(tdc.revcomp64(km, k), tdc.revcomp32(km, k))
+        assert torch.equal(tdc.parity64(km), tdc.parity32(km))
+
+
+def test_rolling_kmers_k17_match_jax():
+    rng = np.random.default_rng(17)
+    codes = rng.integers(0, 4, size=(3, 300), dtype=np.uint8)
+    want = np.asarray(jdc.rolling_kmers(jnp.asarray(codes), 17))
+    got = tdc.rolling_kmers(torch.from_numpy(codes), 17)
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+    assert tdc.kmer_dtype(17) == torch.int64
+    assert tdc.kmer_dtype(15) == torch.int32

@@ -8,6 +8,10 @@ on a machine with the GPU:
 Nothing here imports JAX or br_tpu: that machine has neither."""
 
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -464,3 +468,189 @@ def test_reverse_slots_families(dev, cases, name):
 @pytest.mark.parametrize("layout", list(REVERSE_LAYOUTS))
 def test_reverse_slots_layouts(dev, layout, variant):
     _reverse_on_card(dev, *REVERSE_LAYOUTS[layout], variant)
+
+
+# k = 17: the kernels' 64-bit instantiations, on the k = 17 families of
+# tests/torch_cases.py (one genome, one 1 GiB bitfield for the module).
+
+@pytest.fixture(scope="module")
+def k17(dev):
+    cases = tc.k17_cases()
+    pieces = cases["mixed"][0]
+    return cases, SolidSet.from_sequences(pieces, tc.K17).device_words(dev)
+
+
+K17_SITES = ["one", "two", "graph", "gap-size", "graph-wide",
+             "gap-size-wide", "greedy", "greedy-ms14", "greedy-ms15"]
+
+
+@pytest.mark.parametrize("name", ["mixed", "long_walk"])
+@pytest.mark.parametrize("strategy", K17_SITES)
+def test_k17_kernels_match_plain(dev, k17, strategy, name):
+    """K1 (int64 k-mers), K2, K5, K6 (both modes, walk_max 248 and 2040)
+    and K7 (ms 7, 14 and 15: 33 DP columns) at k = 17 against their plain
+    versions, and K3 on their records."""
+    cases, table = k17
+    _pieces, codes, rstart, rlen = cases[name]
+    codes = torch.from_numpy(codes).to(dev)
+    rs = torch.from_numpy(rstart).to(dev)
+    rl = torch.from_numpy(rlen).to(dev)
+    k, NS = tc.K17, site_capacity(tc.CHUNK)
+    before = dict(kernels.LAUNCHES)
+    d = probe.dense_probe(table, codes, rs, rl, k, NS)
+    dp = probe.dense_probe_plain(table, codes, rs, rl, k, NS)
+    _same(d, dp)
+    assert dp.kmers.dtype == torch.int64 and int(dp.n_sites[0]) > 0
+    args = (table, codes, dp.kmers, dp.s_pos, dp.n_sites, rs, rl, k)
+    if strategy == "one":
+        kname, fns, extra = "one_sites64", (sites.one_sites,
+                                            sites.one_sites_plain), (tc.C,)
+    elif strategy == "two":
+        kname, fns, extra = "two_sites64", (two.two_sites,
+                                            two.two_sites_plain), (tc.C,)
+    elif strategy.startswith("greedy"):
+        ms = int(strategy[9:]) if "-ms" in strategy else tc.MS
+        kname, fns, extra = "greedy_sites64", (
+            greedy.greedy_sites, greedy.greedy_sites_plain), (ms, tc.C)
+    else:
+        wm = WIDE_WALK_MAX if strategy.endswith("-wide") else 248
+        kname, fns = "walk_sites64", (walk.walk_sites,
+                                      walk.walk_sites_plain)
+        args = (table, codes, dp.kmers, dp.V, *args[3:])
+        extra = (tc.C, strategy.replace("-wide", ""), wm)
+    s, sp = (f(*args, *extra) for f in fns)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kname] == before[kname] + 1
+    assert kernels.LAUNCHES["dense_probe64"] == before["dense_probe64"] + 1
+    _same(sites.defined(s), sites.defined(sp))
+    assert name != "mixed" or bool((sp.rec_p < BIG).any())
+    x_args = (codes, rs, rl, dp.s_pos, dp.n_sites, sp, dp.cap_read)
+    xp = splice.chain_splice_plain(*x_args)
+    _same(splice.chain_splice(*x_args), xp)
+    _same(splice.chain_splice(*x_args[:5], s, dp.cap_read), xp)
+
+
+@pytest.mark.parametrize("strategy", ["one", "two", "graph", "gap-size",
+                                      "greedy"])
+def test_k17_pass_on_card_matches_jax_recording(dev, k17, strategy):
+    cases, table = k17
+    golden = tc.load_golden(tc.golden_path_k17(strategy))
+    runs = [("mixed", None, tc.MS)]
+    if strategy in tc.WALKERS:
+        runs += [("long_walk", None, tc.MS),
+                 ("long_walk_wide", WIDE_WALK_MAX, tc.MS)]
+    if strategy == "greedy":
+        runs += [("mixed_ms15", None, tc.MS17[1])]
+    for rec, wm, ms in runs:
+        case = cases[rec.replace("_wide", "").replace("_ms15", "")]
+        got = tc.run_port_pass(strategy, case, walk_max=wm, device=dev,
+                               ms=ms, k=tc.K17, table=table)
+        tc.assert_matches_recording(got, golden[rec], case[2], case[3])
+
+
+def test_k17_dense_probe_stress(dev):
+    """K1 at k = 17 on a 2^20 chunk of random codes and a random 1 GiB
+    bitfield with about 30 % of its bits set, drawn on the card: sites in
+    every tile, reads across tiles, k-mers with bit 33 set."""
+    codes, _w, rstart, rlen = tc.dense_stress_case(11, seed=17)
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def word():
+        return torch.randint(-(1 << 31), 1 << 31, (1 << 28,), device=dev,
+                             dtype=torch.int32, generator=g)
+
+    words = (word() & word()) | (word() & word() & word() & word())
+    args = [words] + [torch.from_numpy(a).to(dev)
+                      for a in (codes, rstart, rlen)]
+    d = probe.dense_probe(*args, tc.K17, 1 << 18)
+    dp = probe.dense_probe_plain(*args, tc.K17, 1 << 18)
+    _same(d, dp)
+    assert int(dp.n_sites[0]) > 1 << 17
+    assert bool((dp.kmers >> 33).any())
+
+
+@pytest.mark.parametrize("a", [0, 2, 255])
+@pytest.mark.parametrize("k", [11, 13, 17])
+def test_solid_build_matches_plain(dev, k, a):
+    """K8 (count and pack) against the plain build, across two batches,
+    in one partition of the half-space (k <= 15; 8 at k = 17) and in 32
+    (a byte cap of 2^(2k-4)); k-mers seen more than 255 times."""
+    from br_tpu_torch.set import device_build as db
+
+    rng = np.random.default_rng(k)
+    g = rng.choice(tc.BASES, size=6000).tobytes()
+    reads = tc.fuzz_reads(rng, g, 80, 4, k=k) + [g[100:400]] * 300
+    batches = [db.pack_reads(reads[:50], k, dev),
+               db.pack_reads(reads[50:], k, dev)]
+    want = db.solid_words_plain(batches, k, a)
+    name = kernels.width("solid_count", k)
+    half = 1 << (2 * k - 1)
+    for cap in (db.DEFAULT_MAX_COUNT_BYTES, 1 << (2 * k - 4)):
+        before = dict(kernels.LAUNCHES)
+        got = db.build_words(batches, k, a, max_count_bytes=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        nparts = -(-half // db.partition_size(k, cap))
+        assert kernels.LAUNCHES[name] - before[name] == 2 * nparts
+        assert kernels.LAUNCHES["solid_pack"] - before["solid_pack"] == \
+            nparts
+    assert nparts == 32
+    assert (db.popcount_words(want) > 0) == (a < 255)
+
+
+@pytest.mark.parametrize("clear", [False, True])
+def test_solid_pack_clear(dev, clear):
+    """K8b leaves the counts as they are, or zeroes them behind its read
+    (the build clears every partition but the last); the words are the
+    plain version's either way."""
+    from br_tpu_torch.set import device_build as db
+
+    g = torch.Generator().manual_seed(8)
+    counts = torch.randint(0, 300, (1 << 16,), generator=g,
+                           dtype=torch.int32).to(dev)
+    kept = counts.clone()
+    words = torch.empty(counts.shape[0] // 32, dtype=torch.int32,
+                        device=dev)
+    want = torch.empty_like(words)
+    db.threshold_pack_plain(kept.clone(), 2, want, clear=False)
+    before = kernels.LAUNCHES["solid_pack"]
+    db.threshold_pack(counts, 2, words, clear=clear)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["solid_pack"] == before + 1
+    assert torch.equal(words, want)
+    assert torch.equal(counts, torch.zeros_like(counts) if clear else kept)
+
+
+def test_checked_build_traps_nothing_in_greedy(dev):
+    """Every greedy card test here (K7 at k <= 15, and at k = 17 with ms
+    7, 14 and 15, beside K1 and K3), run again in a process whose kernels
+    are the checked build (BR_BOUNDS_CHECK=1: each traceback-table index
+    and each table probe checked, a trap at the first out of range)."""
+    root = Path(__file__).resolve().parent.parent
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", __file__, "-q", "-p",
+         "no:cacheprovider", "-k", "greedy and not checked"],
+        env=dict(os.environ, BR_BOUNDS_CHECK="1"), cwd=root,
+        capture_output=True, text=True, timeout=900)
+    out = r.stdout[-3000:] + r.stderr[-2000:]
+    assert r.returncode == 0, out
+    assert "bounds check failed" not in r.stdout, out
+    assert " passed" in r.stdout and "skipped" not in r.stdout, out
+
+
+def test_k17_corrector_on_card_matches_oracle(dev):
+    """The default chain at k = 17 on the card, with the set built on the
+    card (K8), equals the oracle."""
+    from br_tpu_torch.set import device_build as db
+
+    rng = np.random.default_rng(17)
+    genome = tc.repeat_rich_genome(rng, k=tc.K17)
+    reads = tc.fuzz_reads(rng, genome, 40, 5, k=tc.K17)
+    solid = db.DeviceSolidSet(tc.K17, db.build_solid_words(
+        [genome] * 3, tc.K17, 2, dev))
+    tcor = Torch3Corrector(solid, FULL, tc.C, tc.MS, chunk=tc.CHUNK,
+                           nreads=tc.R)
+    got = tcor.correct_batch(reads, False)
+    methods = build_methods(FULL, solid.host(), tc.C, tc.MS)
+    assert got == [correct_read(r, methods, False) for r in reads]
+    assert sum(a != b for a, b in zip(got, reads)) >= 10

@@ -33,9 +33,12 @@ passes on the two-error stress family (``two_stress_case``; name
 ``two_stress`` to record it).  ``golden/torch_greedy_rewind_k13.npz``
 holds br_tpu's ``greedy`` pass at ms = 8 on ``greedy_rewind_case``, whose
 attempts consume a negative count (name ``greedy_rewind``).
+``golden/torch_<strategy>_pass_k17.npz`` holds br_tpu's passes at k = 17
+(u64 registers) on ``k17_cases``, the walkers' long-walk family also at
+walk_max 2040 and greedy also at ms = 15 (name ``<strategy>_k17``).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py \
-        [strategy ... two_stress greedy_rewind]
+        [strategy ... two_stress greedy_rewind one_k17 ...]
 """
 
 from __future__ import annotations
@@ -235,9 +238,10 @@ def pieces_of(g):
 
 
 def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True,
-                     ms=MS):
+                     ms=MS, k=K):
     """Run br_tpu's pass of ``strategy`` on every case, eagerly unless
-    ``eager`` is False (then it compiles for many minutes)."""
+    ``eager`` is False (then it compiles for many minutes).  Cases with
+    the same genome share one bitfield (1 GiB at k = 17)."""
     import contextlib
 
     import jax
@@ -246,13 +250,17 @@ def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True,
     from br_tpu.set.solid import SolidSet
 
     kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(K, strategy, C, ms, C, CHUNK, R, **kw)
-    outs = {}
+    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, **kw)
+    outs, tables = {}, {}
     for name, (g, codes, rstart, rlen) in cases.items():
+        key = tuple(pieces_of(g))
+        if key not in tables:
+            tables.clear()
+            tables[key] = jax.numpy.asarray(
+                SolidSet.from_sequences(key, k).device_words())
         # device arrays: eager vmapped code cannot index numpy arrays
-        args = [jax.numpy.asarray(x) for x in (
-            SolidSet.from_sequences(pieces_of(g), K).device_words(), codes,
-            rstart, rlen)]
+        args = [tables[key]] + [jax.numpy.asarray(x) for x in (
+            codes, rstart, rlen)]
         with jax.disable_jit() if eager else contextlib.nullcontext():
             o, n, cap, aux, _dl, _dc = fn(*args)
             jax.block_until_ready(o)
@@ -271,9 +279,10 @@ def save_golden(outs, path=GOLDEN):
     np.savez_compressed(path, **arrs)
 
 
-def run_port_pass(strategy, case, walk_max=None, device="cpu", ms=MS):
+def run_port_pass(strategy, case, walk_max=None, device="cpu", ms=MS, k=K,
+                  table=None):
     """The port's pass of ``strategy`` on one case: numpy (out, out_len,
-    cap, aux)."""
+    cap, aux); ``table``, when given, is the case genome's bitfield."""
     import torch
 
     from br_tpu_torch.correct.engine3 import make_pass3_fn
@@ -281,10 +290,11 @@ def run_port_pass(strategy, case, walk_max=None, device="cpu", ms=MS):
 
     g, codes, rstart, rlen = case
     kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(K, strategy, C, ms, C, CHUNK, R, **kw)
-    out = fn(SolidSet.from_sequences(pieces_of(g), K).device_words(device),
-             *(torch.from_numpy(x).to(device) for x in (codes, rstart,
-                                                          rlen)))
+    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, **kw)
+    if table is None:
+        table = SolidSet.from_sequences(pieces_of(g), k).device_words(device)
+    out = fn(table, *(torch.from_numpy(x).to(device) for x in (codes, rstart,
+                                                               rlen)))
     return tuple(t.cpu().numpy() for t in out)
 
 
@@ -1023,6 +1033,71 @@ def greedy_rewind_case(seed=5, n=3):
     return [*pieces, g], *pack(reads, rng=rng)
 
 
+#: k = 17 (u64 registers): one genome for every case, so that a test
+#: file builds its 1 GiB bitfield once.
+K17 = 17
+#: greedy's search lengths recorded at k = 17: the default, and the
+#: largest br_tpu takes (ms + 1 <= 16), whose DP has Lc = ms + 17 columns.
+MS17 = (MS, 15)
+
+
+def golden_path_k17(strategy: str) -> str:
+    return os.path.join(os.path.dirname(__file__), "golden",
+                        f"torch_{strategy}_pass_k17.npz")
+
+
+def k17_cases():
+    """The k = 17 families on one genome of three pieces: name ->
+    (pieces, codes, rstart, rlen) at the test geometry.  ``mixed``: reads
+    with uniform errors, of a repeat-rich genome, with error pairs k+1
+    apart, with dense errors, and with nested substitutions 8 apart past
+    SLOTS; ``long_walk``: chimeras, a 400-base deletion and a 400-base
+    random stretch, in slots with the wide profile's headroom."""
+    k = K17
+    rng = np.random.default_rng(1717)
+    g1 = rng.choice(BASES, size=4000).tobytes()
+    g2 = repeat_rich_genome(rng, k=k)
+    gA = rng.choice(BASES, size=2400).tobytes()
+    gB = rng.choice(BASES, size=2400).tobytes()
+    gap = rng.choice(BASES, size=400).tobytes()
+    reads = (fuzz_reads(rng, g1, 8, 4, k=k)
+             + fuzz_reads(rng, g2, 8, 5, k=k)
+             + fuzz_reads(rng, g2, 5, 2, k=k, cluster_gap=k + 1)
+             + fuzz_reads(rng, g1, 4, 10, k=k))
+    for j in range(3):
+        lo = int(rng.integers(0, 3400))
+        r = bytearray(g1[lo : lo + 400])
+        for t in range(9 + 2 * j):
+            p = 60 + 8 * t
+            r[p] = ord("ACTG"[("ACTG".index(chr(r[p])) + 1) % 4])
+        reads.append(bytes(r))
+    pieces = [g1, g2, gA + gB]
+    walks = [gA[100:600] + gB[700:1200], gA[50:1800] + gB[200:900],
+             gA[:500] + gA[900:1500], gB[:600] + gap + gB[1000:1500]]
+    caps = [slot_len(len(r), wide=True) for r in walks]
+    return {"mixed": (pieces, *pack(reads, rng=rng)),
+            "long_walk": (pieces, *pack(walks, caps=caps, rng=rng))}
+
+
+def record_k17(strategy):
+    """br_tpu's pass of ``strategy`` at k = 17 on ``k17_cases``: the
+    walkers' long-walk family also at walk_max 2040 (``long_walk_wide``),
+    greedy also at ms = 15 (``mixed_ms15``).  Eagerly, as at k = 13."""
+    cases = k17_cases()
+    if strategy not in WALKERS:
+        cases.pop("long_walk")
+    outs = jax_pass_outputs(cases, strategy, k=K17)
+    if strategy in WALKERS:
+        outs["long_walk_wide"] = jax_pass_outputs(
+            {"long_walk": cases["long_walk"]}, strategy,
+            walk_max=WIDE_WALK_MAX, k=K17)["long_walk"]
+    if strategy == "greedy":
+        outs["mixed_ms15"] = jax_pass_outputs(
+            {"mixed": cases["mixed"]}, strategy, ms=MS17[1],
+            k=K17)["mixed"]
+    return outs
+
+
 def record_greedy_rewind():
     """br_tpu's greedy pass at ms = MS_REWIND on greedy_rewind_case()
     (about half a minute, eagerly)."""
@@ -1041,6 +1116,11 @@ if __name__ == "__main__":
     import sys
 
     for st in sys.argv[1:] or STRATEGIES + ("two_stress", "greedy_rewind"):
+        if st.endswith("_k17"):   # one_k17 ... gap-size_k17
+            st = st[:-4]
+            save_golden(record_k17(st), golden_path_k17(st))
+            print("wrote", golden_path_k17(st), flush=True)
+            continue
         if st == "two_stress":
             save_golden(record_two_stress(), TWO_STRESS_GOLDEN)
             print("wrote", TWO_STRESS_GOLDEN, flush=True)
