@@ -15,7 +15,10 @@ Global flags + one set-construction subcommand:
   K8 on the card; the records stream through in batches); a selection
   method counts on the host (``Counter``, ``Spectrum``), as br_tpu does;
 * ``solid``  — load a membership set from a solid artifact / csv /
-  fasta / fastq (src/main.rs:117-145).
+  fasta / fastq (src/main.rs:117-145);
+* ``large-kmer`` — a sparse ``HashSet`` of every k-mer of a csv / fasta /
+  fastq input, any k <= 31 (src/main.rs:147-160), corrected through the
+  sorted-table instantiations of the kernels.
 
 Abundance selection (count/fasta) is a nested subcommand, like the
 reference: ``first-minimum`` | ``rarefaction PERCENT`` |
@@ -23,10 +26,11 @@ reference: ``first-minimum`` | ``rarefaction PERCENT`` |
 
 ``-c`` names the strategies of the chain, in order, from ``one``,
 ``two``, ``graph``, ``greedy`` and ``gap-size``; without ``-c`` the chain
-is br's default, all five in that order.  ``large-kmer`` (k > 17, ROADMAP
-A5) is refused, and so is any set whose k is above the device path's 17:
-for ``fasta`` before anything is counted, for ``count`` and ``solid`` as
-soon as the set is loaded.  ``--device`` is ``cuda`` (default) or ``cpu``
+is br's default, all five in that order.  A solid bitfield above k = 17
+is refused (2^(2k-1) bits: a host ``Counter`` at k = 19 would hold 128
+GiB, in br_tpu too): for ``fasta`` before anything is counted, for
+``count`` and ``solid`` as soon as the set is loaded; ``large-kmer`` is
+the way to a large k.  ``--device`` is ``cuda`` (default) or ``cpu``
 (the kernels' plain PyTorch versions).
 ``-t`` sets the host threads of the native engine that corrects the
 reads the device does not finish (0: one a core).
@@ -47,7 +51,7 @@ from br_tpu_torch import (
     DEFAULT_RECORD_BUFFER,
     __version__,
 )
-from br_tpu_torch.correct.device_codec import MAX_K as DEVICE_MAX_K
+from br_tpu_torch.correct.device_codec import MAX_K_SOLID
 from br_tpu_torch.count import Counter, Spectrum, ThresholdMethod
 from br_tpu_torch.errors import (
     AbundanceThresholdOrAbundanceMethod,
@@ -57,7 +61,7 @@ from br_tpu_torch.errors import (
 )
 from br_tpu_torch.io.fasta import open_maybe_compressed, read_records
 from br_tpu_torch.runtime import run_correction, stdio_streams
-from br_tpu_torch.set import SolidSet
+from br_tpu_torch.set import HashSet, SolidSet
 from br_tpu_torch.set.device_build import (
     BATCH_BASES, DeviceSolidSet, SolidBuilder)
 
@@ -135,8 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("solid", "csv", "fasta", "fastq"))
     s.add_argument("-k", "--kmer-size", type=int)
 
-    lk = sub.add_parser("large-kmer",
-                        help="sparse set for large k (not ported yet)")
+    lk = sub.add_parser("large-kmer", help="sparse set for large k")
     lk.add_argument("-i", "--input", required=True, dest="set_input")
     lk.add_argument("-f", "--format", required=True,
                     choices=("csv", "fasta", "fastq"))
@@ -197,6 +200,13 @@ def build_set(args):
         seqs = (seq for _d, seq, _q in read_records(args.set_input))
         return SolidSet.from_sequences(seqs, args.kmer_size)
 
+    if args.subcommand == "large-kmer":
+        if args.format == "csv":
+            with open_maybe_compressed(args.set_input) as fh:
+                return HashSet.from_csv(fh, args.kmer_size)
+        seqs = (seq for _d, seq, _q in read_records(args.set_input))
+        return HashSet.from_sequences(seqs, args.kmer_size)
+
     raise SystemExit(f"unknown subcommand {args.subcommand}")
 
 
@@ -219,14 +229,15 @@ def device_set(paths, k: int, abundance: int, device) -> DeviceSolidSet:
     return DeviceSolidSet(k, builder.finish(abundance))
 
 
-def refuse_k(k: int) -> bool:
+def refuse_k(k: int, kind: str = "solid") -> bool:
     """Print one error line and return True when the device path cannot
-    take k (an odd k <= 17; larger k waits on ROADMAP A5)."""
-    if 1 <= k <= DEVICE_MAX_K:
+    take a set of ``kind`` at k: a solid bitfield above k = 17 (a
+    ``HashSet``, ``large-kmer``, takes any k <= 31)."""
+    if kind == "hash" or 1 <= k <= MAX_K_SOLID:
         return False
-    print(f"error: k={k} is not ported to br_tpu_torch yet: its device "
-          f"path takes an odd k <= {DEVICE_MAX_K} (larger k is ROADMAP A5)",
-          file=sys.stderr)
+    print(f"error: k={k} is too large for a solid bitfield (br_tpu_torch "
+          f"takes an odd k <= {MAX_K_SOLID} there); use large-kmer for "
+          f"larger k", file=sys.stderr)
     return True
 
 
@@ -258,14 +269,11 @@ def main(argv=None) -> int:
               "available; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 1
-    if args.subcommand == "large-kmer":
-        print("error: large-kmer (k > 17) is not ported to br_tpu_torch "
-              "yet (ROADMAP A5)", file=sys.stderr)
-        return 2
 
     try:
         kmer_set = build_set(args)
-        if refuse_k(kmer_set.k):
+        if refuse_k(kmer_set.k, "hash" if isinstance(kmer_set, HashSet)
+                    else "solid"):
             return 2
         inputs, outputs = stdio_streams(args.inputs, args.outputs)
         n = run_correction(

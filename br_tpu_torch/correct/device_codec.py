@@ -1,13 +1,19 @@
 """Device k-mer math as PyTorch functions (the port of
-``br_tpu.correct.device_codec``, odd k <= 17).
+``br_tpu.correct.device_codec``).
 
-K-mers and bitfield words are held in ``int64``: a 2k-bit k-mer (34 bits
-at k = 17) and a 32-bit word both fit, and every backend has the shifts,
-masks and comparisons on ``int64`` that ``uint32`` and ``uint64`` lack.
-torch's ``>>`` on ``int64`` is arithmetic, so the group swaps of the
-reverse complement stay inside 34 bits (``revcomp64``): no intermediate
-sets bit 63.  The CUDA kernels (``br_tpu_torch/csrc``) do the same
-arithmetic on ``uint32`` registers for k <= 15 and ``uint64`` for k = 17;
+Two kinds of membership set reach the device: a solid bitfield
+(``"solid"``: an odd k <= 17, 2^(2k-1) bits) and the sorted table of a
+``HashSet`` (``"hash"``: any k <= 31, a sorted, sentinel-padded table of
+canonical k-mers, probed by a binary search).  K-mers and bitfield words
+are held in ``int64``: a 2k-bit k-mer (62 bits at k = 31) and a 32-bit
+word both fit, and every backend has the shifts, masks and comparisons on
+``int64`` that ``uint32`` and ``uint64`` lack.  torch's ``>>`` on
+``int64`` is arithmetic, so the group swaps of the reverse complement
+mask every right shift (``revcomp64``), and the sorted table, whose k = 31
+sentinel is bit 63, is compared as unsigned by flipping the sign bit of
+both sides (``make_hash_probe``).  The CUDA kernels
+(``br_tpu_torch/csrc``) do the same arithmetic on ``uint32`` registers for
+a bitfield at k <= 15 and ``uint64`` past it and for every sorted table;
 these functions are their plain versions' building blocks and the tensor
 form of the host codec (``br_tpu_torch.codec``).
 """
@@ -27,32 +33,69 @@ def comp_mask(k: int) -> int:
     return int("10" * k, 2)
 
 
-#: the largest k the device path takes: a k-mer in a 64-bit register and
-#: a 2^(2k-1)-bit table of 1 GiB (larger k needs the hash set).
-MAX_K = 17
+#: the largest k of a solid bitfield on the device: a 2^(2k-1)-bit table
+#: of 1 GiB at k = 17.
+MAX_K_SOLID = 17
+#: the largest k of the device path: a k-mer in a 64-bit register, probed
+#: in the sorted table of a ``HashSet``.
+MAX_K = 31
 #: the largest k whose k-mers fit 32 bits (the kernels' 32-bit
-#: instantiations; k = 17 takes the 64-bit ones).
+#: instantiations, for a bitfield; past it the 64-bit ones).
 MAX_K32 = 15
+#: the set kinds: a solid bitfield (int32 words) and the sorted table of
+#: a HashSet (int64).
+KINDS = ("solid", "hash")
+_SIGN = -(1 << 63)
 
 
-def check_k(k: int) -> None:
-    """The port's device path: an odd k <= 17."""
-    if not (1 <= k <= MAX_K and k % 2 == 1):
+def check_k(k: int, kind: str = "solid") -> None:
+    """The port's device path: an odd k <= 17 for a bitfield, any k <= 31
+    for a sorted table."""
+    if kind == "hash":
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"a sorted k-mer table needs 1 <= k <= "
+                             f"{MAX_K}, got k={k}")
+        return
+    if kind != "solid":
+        raise ValueError(f"unknown set kind {kind!r}")
+    if not (1 <= k <= MAX_K_SOLID and k % 2 == 1):
         raise ValueError(
-            f"br_tpu_torch's device path needs an odd k <= {MAX_K}, got "
-            f"k={k} (larger k is ROADMAP A5)")
+            f"a solid bitfield on the device needs an odd k <= "
+            f"{MAX_K_SOLID}, got k={k} (larger k takes a HashSet)")
 
 
-def kmer_dtype(k: int) -> torch.dtype:
-    """The dtype of K1's k-mers: int32 up to k = 15, int64 at k = 17."""
-    return torch.int32 if k <= MAX_K32 else torch.int64
+def kmer_dtype(k: int, kind: str = "solid") -> torch.dtype:
+    """The dtype of K1's k-mers: int32 for a bitfield up to k = 15, int64
+    past it and for every sorted table."""
+    return torch.int32 if kind == "solid" and k <= MAX_K32 else torch.int64
+
+
+def table_kind(table: torch.Tensor) -> str:
+    """The set kind of a device table, from its dtype."""
+    if table.dtype == torch.int32:
+        return "solid"
+    if table.dtype == torch.int64:
+        return "hash"
+    raise TypeError(f"table has dtype {table.dtype}: int32 bitfield words "
+                    "or an int64 sorted table")
+
+
+def table_levels(table: torch.Tensor) -> int:
+    """The binary search's steps over a sorted table of n entries."""
+    return max(0, (table.shape[0] - 1).bit_length())
 
 
 def check_table(table: torch.Tensor, k: int) -> None:
-    """The bitfield holds 2^(2k-1) bits, one per canonical k-mer."""
-    if table.shape[0] < max(1, (1 << (2 * k - 1)) // 32):
-        raise ValueError(f"table has {table.shape[0]} words, too few for "
-                         f"k={k}")
+    """A bitfield holds 2^(2k-1) bits, one per canonical k-mer; a sorted
+    table is padded to a power of two entries (``HashSet.device_table``),
+    the 2^levels the kernels' search takes."""
+    n = table.shape[0]
+    if table_kind(table) == "hash":
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"sorted table has {n} entries, not a power "
+                             "of two")
+    elif n < max(1, (1 << (2 * k - 1)) // 32):
+        raise ValueError(f"table has {n} words, too few for k={k}")
 
 
 def encode_ascii(ascii_arr: torch.Tensor) -> torch.Tensor:
@@ -121,10 +164,60 @@ def make_solid_probe_any(words: torch.Tensor, k: int):
 
     def probe(kmer: torch.Tensor) -> torch.Tensor:
         idx = canonical_any(kmer, k) >> 1
-        w = words[idx >> 5].to(torch.int64) & _M32
+        w = gather(words, idx >> 5).to(torch.int64) & _M32
         return ((w >> (idx & 31)) & 1) == 1
 
     return probe
+
+
+def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an index tensor of any shape, by
+    ``index_select`` (advanced indexing is many times slower on the CPU
+    with several threads)."""
+    if idx.dim() == 1:
+        return table.index_select(0, idx)
+    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+
+def make_hash_probe(table: torch.Tensor, k: int):
+    """Membership closure over a sorted table of canonical k-mers (int64
+    holding the uint64 bits of ``HashSet.device_table``): the plain
+    version of K9, br_tpu's ``make_hash_probe``.
+
+    ``probe(kmer) -> bool``: canonicalise, then a branchless binary search
+    of ``levels = (n-1).bit_length()`` steps (``pos`` moves to
+    ``min(pos + 2^level, n-1)`` where that entry is <= the k-mer; with n
+    a power of two, as every device table is, the min never bites), and
+    ``table[pos] == cano`` at the end.  Entries compare as unsigned: the
+    sign bit of both sides is flipped (the k = 31 sentinel is 1 << 63)."""
+    n = table.shape[0]
+    levels = max(0, (n - 1).bit_length())
+    flipped = table ^ _SIGN
+    clip = n & (n - 1) != 0
+
+    def probe(kmer: torch.Tensor) -> torch.Tensor:
+        cano = canonical_any(kmer.long(), k)
+        if n == 0:
+            return torch.zeros(cano.shape, dtype=torch.bool,
+                               device=cano.device)
+        key = cano ^ _SIGN
+        pos = torch.zeros_like(cano)
+        for level in reversed(range(levels)):
+            cand = pos + (1 << level)
+            if clip:
+                cand = cand.clamp(max=n - 1)
+            pos = torch.where(gather(flipped, cand) <= key, cand, pos)
+        return gather(table, pos) == cano
+
+    return probe
+
+
+def make_probe(table: torch.Tensor, k: int):
+    """The membership closure of a device table: the bitfield probe for
+    int32 words, the sorted-table probe for an int64 table."""
+    if table_kind(table) == "hash":
+        return make_hash_probe(table, k)
+    return make_solid_probe_any(table, k)
 
 
 def rolling_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:

@@ -28,11 +28,16 @@ overflowed NS meets fewer neighbours.  Reads capped again are corrected
 on the host by the native engine (``br_tpu_torch.native``), so the output
 is always the reference's.
 
-Odd k up to 15 runs the kernels' 32-bit instantiations, k = 17 their
-64-bit ones (``kernels.width``).  The solid set may be a host ``SolidSet``
-or a ``DeviceSolidSet`` built on the device (``set/device_build.py``):
-then the table stays where it was built, and a host copy of it is made
-only when the native engine first needs one.
+The set is a solid bitfield or a ``HashSet``.  A bitfield at an odd k up
+to 15 runs the kernels' 32-bit instantiations, at k = 17 their 64-bit
+ones; a ``HashSet`` (any k up to 31: br's ``large-kmer``) runs their
+``_h`` instantiations, 64-bit registers probing its sorted table by a
+binary search (``kernels.table_kernel``).  The bitfield may be a host
+``SolidSet`` or a ``DeviceSolidSet`` built on the device
+(``set/device_build.py``): then the table stays where it was built, and a
+host copy of it is made only when the native engine first needs one.  A
+``HashSet``'s padded table is copied to the device once; the native
+engine takes the host set itself.
 """
 
 from __future__ import annotations
@@ -81,8 +86,9 @@ def resolve_device(device) -> torch.device:
 
 
 def host_set(valid_kmer):
-    """The host ``SolidSet`` of a solid set (a ``DeviceSolidSet`` copies
-    its table once)."""
+    """The host set of a membership set: a ``DeviceSolidSet``'s
+    ``SolidSet`` (its table copied once); a ``SolidSet`` or ``HashSet``
+    itself."""
     from br_tpu_torch.set.device_build import DeviceSolidSet
 
     if isinstance(valid_kmer, DeviceSolidSet):
@@ -103,9 +109,12 @@ def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
     sites, applied records, capped reads, raw site count).  Output codes
     past out_len are 0.  ``ms`` and ``nb`` are greedy's search length and
     validation count; ``walk_max`` bounds the walks of ``graph`` and
-    ``gap-size`` (the wide profile: WIDE_WALK_MAX)."""
+    ``gap-size`` (the wide profile: WIDE_WALK_MAX).  The table is int32
+    bitfield words or a sorted int64 table
+    (``HashSet.device_table_tensor``): its dtype picks the kernels, and
+    the k its kind allows is checked where it is given."""
     check_strategy(strategy)
-    dc.check_k(k)
+    dc.check_k(k, "hash")
     walk_profile(walk_max)
     if strategy == "greedy":
         check_ms(ms, nb)
@@ -158,7 +167,8 @@ class Torch3Corrector:
     retry once on the sibling with the wide walk profile, and impure,
     too-long and still-capped reads are corrected on the host by the
     native engine, on ``threads`` threads (0: one a core).
-    ``valid_kmer`` is a ``SolidSet`` or a ``DeviceSolidSet``."""
+    ``valid_kmer`` is a ``SolidSet``, a ``DeviceSolidSet`` or a
+    ``HashSet``."""
 
     #: flat positions per chunk
     CHUNK = 1 << 20
@@ -170,12 +180,17 @@ class Torch3Corrector:
                  nreads: int | None = None, device=None, table=None,
                  walk_max: int = WALK_MAX, threads: int = 0, parent=None):
         from br_tpu_torch.set.device_build import DeviceSolidSet
+        from br_tpu_torch.set.hash import HashSet
         from br_tpu_torch.set.solid import SolidSet
 
-        if not isinstance(valid_kmer, (SolidSet, DeviceSolidSet)):
-            raise TypeError("Torch3Corrector needs a br_tpu_torch SolidSet "
-                            "or DeviceSolidSet")
-        dc.check_k(valid_kmer.k)
+        if isinstance(valid_kmer, HashSet):
+            self.kind = "hash"
+        elif isinstance(valid_kmer, (SolidSet, DeviceSolidSet)):
+            self.kind = "solid"
+        else:
+            raise TypeError("Torch3Corrector needs a br_tpu_torch SolidSet, "
+                            "DeviceSolidSet or HashSet")
+        dc.check_k(valid_kmer.k, self.kind)
         self.corrections = [s.lower().replace("_", "-")
                             for s in corrections]
         for s in self.corrections:
@@ -189,8 +204,12 @@ class Torch3Corrector:
             self.CHUNK = chunk
         if nreads is not None:
             self.R = nreads
-        self.table = (valid_kmer.device_words(self.device)
-                      if table is None else table)
+        if table is None:
+            table = (valid_kmer.device_table_tensor(self.device)
+                     if self.kind == "hash"
+                     else valid_kmer.device_words(self.device))
+        #: the device table: bitfield words, or the padded sorted table
+        self.table = table
         #: the walk bound of this corrector's passes; a corrector on the
         #: default profile retries capped reads on a wide sibling
         self.walk_max = walk_max
@@ -261,7 +280,7 @@ class Torch3Corrector:
     def _get_wide(self):
         """The retry sibling (engine3.py:2112-2122): the wide walk
         profile, chunks of at most 2^18 positions and 32 slots, sharing
-        the device bitfield and the native host engine."""
+        the device table and the native host engine."""
         if self._wide is None:
             self._wide = Torch3Corrector(
                 self.valid_kmer, self.corrections, self.c, self.ms,

@@ -9,9 +9,12 @@ masks those positions), the solid bit, the validity mask V, the
 transition mask T; then the site list (position of every transition, in
 order, for the first NS of them) and the reads whose sites overflow NS.
 
-K-mers are int32 for k <= 15 and int64 for k = 17 (the probe index
-``cano >> 1`` then reaches 2^33); the CUDA tensors' launch takes the
-kernel's 64-bit instantiation there.
+The table is a solid bitfield (int32 words) or the sorted table of a
+``HashSet`` (int64, ``device_codec.make_probe``).  K-mers are int32 for a
+bitfield at k <= 15 and int64 past it (the probe index ``cano >> 1`` then
+reaches 2^33) and for a sorted table (k <= 31); the CUDA tensors' launch
+takes the kernel's 64-bit or sorted-table instantiation there
+(``kernels.table_kernel``).
 
 ``dense_probe`` launches ``csrc/dense_probe.cu`` for CUDA tensors and
 runs ``dense_probe_plain`` for CPU tensors.
@@ -34,7 +37,7 @@ TILE = 4096
 
 class Dense(NamedTuple):
     kmers: torch.Tensor     # (CHUNK,) k-mer ending at each position
-    #                         (int32, int64 at k = 17: dc.kmer_dtype)
+    #                         (int32, or int64: dc.kmer_dtype)
     vraw: torch.Tensor      # (CHUNK,) bool solid bit of that k-mer
     V: torch.Tensor         # (CHUNK,) bool vraw inside the read, pin >= k-1
     T: torch.Tensor         # (CHUNK,) bool valid -> invalid transition
@@ -44,10 +47,10 @@ class Dense(NamedTuple):
 
 
 def _check(table, codes, rstart, rlen, k: int, NS: int) -> None:
-    dc.check_k(k)
+    dc.check_k(k, dc.table_kind(table))
     dev = codes.device
     kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(table, "table", torch.int32, dev)
+    kernels.check(table, "table", table.dtype, dev)
     kernels.check(rstart, "rstart", torch.int32, dev)
     kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
     dc.check_table(table, k)
@@ -66,7 +69,8 @@ def dense_probe(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
 
 def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
-    kmers = torch.empty(CHUNK, dtype=dc.kmer_dtype(k), device=dev)
+    kmers = torch.empty(CHUNK, dtype=dc.kmer_dtype(k, dc.table_kind(table)),
+                        device=dev)
     vraw = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     V = torch.empty(CHUNK, dtype=torch.bool, device=dev)
     T = torch.empty(CHUNK, dtype=torch.bool, device=dev)
@@ -79,10 +83,10 @@ def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     scratch = torch.zeros(ntiles + 1 + (R + 7) // 8, dtype=torch.int64,
                           device=dev)
     cap_read = scratch[ntiles + 1:].view(torch.uint8)[:R].view(torch.bool)
+    name, extra = kernels.table_kernel("dense_probe", k, table)
     kernels.launch(
-        kernels.width("dense_probe", k), codes, table, rstart, rlen, CHUNK,
-        R, k, NS, kmers, vraw, V, T, s_pos, cap_read, n_sites, scratch,
-        scratch[ntiles:])
+        name, codes, table, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V,
+        T, s_pos, cap_read, n_sites, scratch, scratch[ntiles:], *extra)
     return Dense(kmers, vraw, V, T, s_pos, n_sites, cap_read)
 
 
@@ -103,7 +107,7 @@ def dense_probe_plain(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
         km[t:] |= c[: CHUNK - t] << (2 * t)
     full = pin >= k - 1
     km = torch.where(full, km, 0)
-    vraw = full & dc.make_solid_probe_any(table, k)(km)
+    vraw = full & dc.make_probe(table, k)(km)
     inread = pin < length
     V = vraw & inread
     vprev = torch.cat([vraw.new_zeros(1), vraw[:-1]])
@@ -116,5 +120,5 @@ def dense_probe_plain(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     cap_read = torch.zeros(R, dtype=torch.bool, device=dev)
     cap_read[rid[T & (q >= NS)]] = True
     n_sites = (q[-1:] + 1).int()
-    return Dense(km.to(dc.kmer_dtype(k)), vraw, V, T, s_pos, n_sites,
-                 cap_read)
+    return Dense(km.to(dc.kmer_dtype(k, dc.table_kind(table))), vraw, V, T,
+                 s_pos, n_sites, cap_read)

@@ -15,8 +15,10 @@ version drives with its own attempt.
 
 K2 ``one_sites`` (the One attempt, :300) launches ``csrc/one_sites.cu``
 for CUDA tensors and runs ``one_sites_plain`` for CPU tensors.  Every
-site kernel takes K1's k-mers (int32 up to k = 15, int64 at k = 17) and
-launches its 64-bit instantiation at k = 17.
+site kernel takes K1's k-mers (``device_codec.kmer_dtype``) and the
+pass's table, a solid bitfield or a sorted ``HashSet`` table, and
+launches the instantiation ``kernels.table_kernel`` names for them: the
+64-bit one for a bitfield at k = 17, the ``_h`` one for a sorted table.
 """
 
 from __future__ import annotations
@@ -55,12 +57,13 @@ class Attempt(NamedTuple):
 def check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen,
                     k: int) -> None:
     """What every site kernel's wrapper checks."""
-    dc.check_k(k)
+    kind = dc.table_kind(table)
+    dc.check_k(k, kind)
     dev = codes.device
     CHUNK = codes.shape[0]
     kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(table, "table", torch.int32, dev)
-    kernels.check(kmers, "kmers", dc.kmer_dtype(k), dev, CHUNK)
+    kernels.check(table, "table", table.dtype, dev)
+    kernels.check(kmers, "kmers", dc.kmer_dtype(k, kind), dev, CHUNK)
     kernels.check(s_pos, "s_pos", torch.int32, dev)
     kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
     kernels.check(rstart, "rstart", torch.int32, dev)
@@ -117,9 +120,10 @@ def _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart, rlen,
                     k: int, c: int) -> Sites:
     NS = s_pos.shape[0]
     out = empty_sites(NS, 1, codes.device)
+    name, extra = kernels.table_kernel("one_sites", k, table)
     kernels.launch(
-        kernels.width("one_sites", k), codes, table, kmers, s_pos, n_sites,
-        rstart, rlen, codes.shape[0], rstart.shape[0], k, c, NS, *out)
+        name, codes, table, kmers, s_pos, n_sites, rstart, rlen,
+        codes.shape[0], rstart.shape[0], k, c, NS, *out, *extra)
     return out
 
 
@@ -195,7 +199,7 @@ def run_sites_plain(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     search finds; it changes nothing (chip_smoke.py counts the chains'
     dependent rounds with it)."""
     CHUNK, NS, dev = codes.shape[0], s_pos.shape[0], codes.device
-    probe = dc.make_solid_probe_any(table, k)
+    probe = dc.make_probe(table, k)
     succ = torch.full((NS,), NS, dtype=torch.int32, device=dev)
     s_cap = torch.zeros(NS, dtype=torch.int32, device=dev)
     rec_p = torch.full((NS * SLOTS,), BIG, dtype=torch.int32, device=dev)

@@ -30,7 +30,9 @@
 // positions (a tile of 4096, 256 tiles at 2^20, about two per SM):
 //  * one 16-byte load of the run's codes, its k-1 halo from the previous
 //    lane by a shuffle (lane 0 loads it); the k-mer rolls in a register,
-//    one shift per position, and the run's 16 probes are issued together;
+//    one shift per position, and the run's 16 probes are issued together
+//    (the probe policy's many(): for a sorted table the 16 binary
+//    searches step level by level together, 16 loads in flight a step);
 //  * one slot search per run, advanced position by position;
 //  * k-mers as four int4 stores, Vraw, V, T as one 16-byte store each;
 //  * T's predecessor bit from the previous lane's last probe (lane 0
@@ -44,12 +46,15 @@
 // The wrapper keeps one zero fill: the look-back states, the ticket and
 // cap_read (a read without a site of rank >= NS is written by no tile).
 //
-// Both register widths from one source: br_dense_probe (uint32_t k-mers
-// written as int32, k <= 15) and br_dense_probe64 (uint64_t, int64, for
-// k = 17), the same code.  At k = 17 a run's k-1 = 16 halo codes are the
-// previous lane's whole run, and lane 0's tile-edge k-mer (ending at
-// p0-1) needs one code more, which it loads; the k-mers are stored as
-// eight 16-byte stores a thread (16 B a position, 25 MB at 2^20).
+// Three instantiations from one source: br_dense_probe (uint32_t k-mers
+// written as int32, a bitfield at k <= 15), br_dense_probe64 (uint64_t,
+// int64, a bitfield at k = 17) and br_dense_probe_h (uint64_t, int64, the
+// sorted table of a HashSet at any k <= 31: its probe is a binary search,
+// br_probe_sorted), the same code.  With 64-bit registers a run's k-1 <=
+// 30 halo codes are the previous two lanes' runs (the second by a shuffle
+// of two, lanes 0 and 1 load it), and lane 0's tile-edge k-mer (ending at
+// p0-1) rolls over both; the k-mers are stored as eight 16-byte stores a
+// thread (16 B a position, 25 MB at 2^20).
 #include "common.cuh"
 
 #define K1_THREADS 256
@@ -93,9 +98,9 @@ __device__ __forceinline__ uint4 k1_bytes(uint32_t m) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <class Reg>
+template <class Reg, class P>
 __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
-    const uint8_t* __restrict__ codes, const uint32_t* __restrict__ table,
+    const uint8_t* __restrict__ codes, P probe,
     const int32_t* __restrict__ rstart, const int32_t* __restrict__ rlen,
     int CHUNK, int R, int k, int NS,
     void* __restrict__ kmers_out, uint8_t* __restrict__ vraw,
@@ -132,9 +137,15 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   // rolling k-mers: the predecessor's, then one per position; all probes
   // issued together
   Reg km = 0;
-  if constexpr (sizeof(Reg) == 8) {  // k = 17: the 17th code of km_prev
-    const int q = p0 - K1_RUN - 1;
-    if (lane == 0 && q >= 0 && q < CHUNK) km = codes[q] & 3u;
+  if constexpr (sizeof(Reg) == 8) {  // k - 1 > 16: the 16 codes before
+    uint32_t prev2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      prev2[i] = __shfl_up_sync(FULL_MASK, cur[i], 2);
+    if (lane < 2) k1_load_run(codes, p0 - 2 * K1_RUN, CHUNK, vec, prev2);
+#pragma unroll
+    for (int i = 0; i < K1_RUN; ++i)
+      km = ((km << 2) | k1_code(prev2, i)) & kmask;
   }
 #pragma unroll
   for (int i = 0; i < K1_RUN; ++i) km = ((km << 2) | k1_code(prev, i)) & kmask;
@@ -145,14 +156,14 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
     km = ((km << 2) | k1_code(cur, i)) & kmask;
     kms[i] = km;
   }
-  uint32_t hit = 0;
+  bool all[K1_RUN];
 #pragma unroll
-  for (int i = 0; i < K1_RUN; ++i)
-    hit |= (uint32_t)br_probe(table, kms[i], k) << i;
+  for (int i = 0; i < K1_RUN; ++i) all[i] = true;
+  const uint32_t hit = probe.many(kms, all, k);
   // solid bit of the k-mer ending at p0-1 (meaningful where T needs it:
   // pin >= k, so p0-1 is in the same slot and at least k-1 bases in)
   uint32_t hprev = __shfl_up_sync(FULL_MASK, hit >> (K1_RUN - 1), 1) & 1u;
-  if (lane == 0) hprev = br_probe(table, km_prev, k);
+  if (lane == 0) hprev = probe(km_prev, k);
 
   // read geometry, masks
   const int rid0 = p0 < CHUNK ? br_slot_of(sh_start, R, p0) : -1;
@@ -292,15 +303,16 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
   }
 }
 
-template <class Reg>
+template <class Reg, class P>
 static int dense_probe_launch(
-    const void* codes, const void* table, const void* rstart,
+    const void* codes, P probe, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int NS, void* kmers,
     void* vraw, void* V, void* T, void* s_pos, void* cap_read,
     void* n_sites, void* tile_state, void* ticket, void* stream) {
   int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
-  dense_probe_kernel<Reg><<<ntiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const uint32_t*)table,
+  dense_probe_kernel<Reg, P><<<ntiles, K1_THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, probe,
       (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, NS, kmers,
       (uint8_t*)vraw, (uint8_t*)V, (uint8_t*)T, (int32_t*)s_pos,
       (uint8_t*)cap_read, (int32_t*)n_sites,
@@ -312,14 +324,20 @@ static int dense_probe_launch(
   const void *codes, const void *table, const void *rstart,               \
       const void *rlen, int CHUNK, int R, int k, int NS, void *kmers,     \
       void *vraw, void *V, void *T, void *s_pos, void *cap_read,          \
-      void *n_sites, void *tile_state, void *ticket, void *stream
-#define K1_PASS                                                           \
-  codes, table, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V, T, s_pos,  \
+      void *n_sites, void *tile_state, void *ticket
+#define K1_PASS(probe)                                                    \
+  codes, probe, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V, T, s_pos,  \
       cap_read, n_sites, tile_state, ticket, stream
 
-extern "C" int br_dense_probe(K1_ARGS) {
-  return dense_probe_launch<uint32_t>(K1_PASS);
+extern "C" int br_dense_probe(K1_ARGS, void* stream) {
+  return dense_probe_launch<uint32_t>(
+      K1_PASS(BrBitProbe{(const uint32_t*)table}));
 }
-extern "C" int br_dense_probe64(K1_ARGS) {
-  return dense_probe_launch<uint64_t>(K1_PASS);
+extern "C" int br_dense_probe64(K1_ARGS, void* stream) {
+  return dense_probe_launch<uint64_t>(
+      K1_PASS(BrBitProbe{(const uint32_t*)table}));
+}
+extern "C" int br_dense_probe_h(K1_ARGS, int levels, void* stream) {
+  return dense_probe_launch<uint64_t>(
+      K1_PASS((BrSortedProbe{(const uint64_t*)table, levels})));
 }

@@ -28,8 +28,15 @@
 // have no counterpart.  JAX refuses ms + 1 > 16 (one emit word,
 // :726-727); so does the wrapper.
 //
-// Both register widths from one source: br_greedy_sites (uint32_t,
-// k <= 15) and br_greedy_sites64 (uint64_t, k = 17).  At k = 17 the DP
+// Three instantiations from one source: br_greedy_sites (uint32_t, a
+// bitfield at k <= 15), br_greedy_sites64 (uint64_t, a bitfield at
+// k = 17) and br_greedy_sites_h (uint64_t, a HashSet's sorted table at any
+// k <= 31).  At k = 31 the DP has Lc + 1 = k + 2 + it_max columns, 40 at
+// ms = 7 and 47 at ms = 15, and up to 45 rows: the sorted instantiation
+// gives each lane two groups of 32 (G = 2), columns j + 1 and j + 33 and
+// rows j and j + 32; group 1's lane 0 takes its left neighbour from group
+// 0's lane 31, which on the anti-diagonal is the same shuffle distance,
+// so the wavefront runs Lr + Lc steps as before.  At k = 17 the DP
 // has Lc + 1 = ms + 18 columns, 33 at ms = 15, one more than a warp has
 // lanes: there lane j owns column j + 1 (COL0 = 1), and column 0, whose
 // cells are closed-form (the Ins run from the start), is computed by lane
@@ -57,7 +64,8 @@
 //    and columns the deciding steps can reach (it < min(fail_step,
 //    rem + 1));
 //  - the traceback codes go to the warp's slice of shared memory
-//    (<= 1.8 KB, 2 KB at k = 17), not local memory;
+//    (<= 1.8 KB, 2 KB at k = 17, 4.2 KB with the sorted table), not
+//    local memory;
 //  - lanes it = 0..ms-1 trace back from cell (k-1+it, k-1+it+2) at once,
 //    each in registers only: a delay line of the last k-1 ops holds back
 //    the before-part, so the first Match pair past it and the offset come
@@ -74,19 +82,17 @@
 #define GAP_OPEN (-1)
 #define GAP_EXT (-1)
 #define NEG_SCORE (-(1 << 14))
-// ms + 1 <= 16, and k - 1 <= KM1 = 14 (uint32_t) or 16 (uint64_t)
+// ms + 1 <= 16, and k - 1 <= KM1 = 14 (uint32_t), 16 (uint64_t with the
+// bitfield) or 30 (the sorted table): br_lag, the instantiation's largest
+// k less one
 #define MAX_MS 15
-template <class T>
-__host__ __device__ constexpr int greedy_km1() {
-  return sizeof(T) == 8 ? 16 : 14;
-}
-template <class T>
+template <class T, class P>
 __host__ __device__ constexpr int greedy_max_lr() {
-  return greedy_km1<T>() + MAX_MS - 1;
+  return br_lag<T, P>() + MAX_MS - 1;
 }
-template <class T>
+template <class T, class P>
 __host__ __device__ constexpr int greedy_max_lc() {
-  return greedy_km1<T>() + MAX_MS + 1;
+  return br_lag<T, P>() + MAX_MS + 1;
 }
 
 // traceback codes of a cell: S layer in bits 0-2, I in 3-5, D in 6-8
@@ -96,9 +102,9 @@ __host__ __device__ constexpr int greedy_max_lc() {
 #define TB_D(x) (((x) >> 6) & 7)
 
 // traceback codes of one warp's DP: (MAX_LR+1) x (MAX_LC+1), padded
-template <class T>
+template <class T, class P>
 __host__ __device__ constexpr int greedy_tb_words() {
-  return (greedy_max_lr<T>() + 1) * (greedy_max_lc<T>() + 1) + 5;
+  return (greedy_max_lr<T, P>() + 1) * (greedy_max_lc<T, P>() + 1) + 5;
 }
 
 // The offset of step it's alignment, by the lane that traces it back from
@@ -111,8 +117,9 @@ __host__ __device__ constexpr int greedy_tb_words() {
 // and the last such Match pair found is the first one forward.  offset
 // sums the indels past the before part up to that pair; corr, the
 // indels that end the alignment, is the leading run of the backward ops.
-// The delay line is of type T: 2(k-1) = 32 bits at k = 17.
-template <class T>
+// The delay line is of type T: 2(k-1) = 32 bits at k = 17, 60 at k = 31.
+// WORDS is the traceback table's size (the checked build's bound).
+template <class T, int WORDS>
 __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
                                               int k, int r, int j,
                                               int* off) {
@@ -125,7 +132,7 @@ __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
   // stays in the table
 #define GREEDY_TB_CHECK()                                                 \
   BR_CHECK(r >= 0 && j >= 0 && j < NC &&                                 \
-           r * NC + j < greedy_tb_words<T>() - 5)
+           r * NC + j < WORDS - 5)
   GREEDY_TB_CHECK();
   int layer = TB_S(tb[r * NC + j]);
   while (layer != TB_START) {
@@ -169,12 +176,16 @@ __device__ __forceinline__ bool greedy_offset(const uint16_t* tb, int NC,
   return found;
 }
 
-template <class T>
+template <class T, class P>
 __device__ __forceinline__ BrAttempt<T> greedy_attempt(
-    const BrSites& a, int ms, int nb, int lane, uint16_t* tb, int i, T reg,
+    const BrSites<P>& a, int ms, int nb, int lane, uint16_t* tb, int i, T reg,
     T corr, int lenf, int32_t* erow) {
-  // the column of lane 0: 1 where Lc + 1 can pass 32 (k = 17)
+  // the column of lane 0: 1 where Lc + 1 can pass 32 (k >= 17)
   constexpr int COL0 = sizeof(T) == 8 ? 1 : 0;
+  // the groups of 32 columns (and of 32 rows) a lane owns: two where Lc
+  // can pass 32 + COL0 (a sorted table: k <= 31, Lc <= 46)
+  constexpr int G = greedy_max_lc<T, P>() > 32 ? 2 : 1;
+  constexpr int WORDS = greedy_tb_words<T, P>();
   const int k = a.k;
   const T kmask = br_kmask<T>(k);
   const int rem = lenf - i;
@@ -186,7 +197,7 @@ __device__ __forceinline__ BrAttempt<T> greedy_attempt(
   int fail_step = ms;
   for (int s = 0; s < ms; ++s) {
     uint32_t sa;
-    const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
+    const int ns = br_alt_next_warp(a.probe, wk, k, kmask, lane, &sa);
     const bool bf = ns != 1;
     const T nxt = bf ? wk : br_add(wk, sa, kmask);
     const bool revisit =
@@ -209,83 +220,123 @@ __device__ __forceinline__ BrAttempt<T> greedy_attempt(
   // columns 0..Lc as far as the deciding steps reach
   const int Lr = k - 1 + it_max, Lc = k + 1 + it_max, NC = Lc + 1;
   const T pre = reg >> 2;
-  // lane t: x[t]; lane j - COL0: y[j-1], the base of its column j
-  const int j = lane + COL0;
-  const uint32_t xl = lane < k - 1
-                          ? (uint32_t)(pre >> (2 * (k - 2 - lane))) & 3u
-                          : code_at(a.codes, i + lane - (k - 1), a.CHUNK);
-  const uint32_t pth = __shfl_sync(BR_FULL, my_path, (j - k) & 31);
-  const uint32_t yj = j == 0 ? 0u
-                      : j - 1 < k - 1
-                          ? (uint32_t)(pre >> (2 * (k - 2 - (j - 1)))) & 3u
-                          : pth;
-  int S = 0, Sold = 0, I = NEG_SCORE, D = NEG_SCORE, sb = TB_START;
+  // lane t: x[t + 32g], the base of row t + 32g + 1; lane j - COL0 - 32g:
+  // y[j-1], the base of its column j of group g
+  uint32_t xl[G], yj[G];
+  int jg[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int t = lane + 32 * g;
+    xl[g] = t < k - 1 ? (uint32_t)(pre >> (2 * (k - 2 - t))) & 3u
+                      : code_at(a.codes, i + t - (k - 1), a.CHUNK);
+    const int j = lane + COL0 + 32 * g;
+    const uint32_t pth = __shfl_sync(BR_FULL, my_path, (j - k) & 31);
+    jg[g] = j;
+    yj[g] = j == 0 ? 0u
+            : j - 1 < k - 1
+                ? (uint32_t)(pre >> (2 * (k - 2 - (j - 1)))) & 3u
+                : pth;
+  }
+  int S[G], Sold[G], I[G], D[G], sb[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    S[g] = 0;
+    Sold[g] = 0;
+    I[g] = NEG_SCORE;
+    D[g] = NEG_SCORE;
+    sb[g] = TB_START;
+  }
   // the step count comes from lane 0 and the loop stays rolled: written
   // as `d <= Lr + Lc`, nvcc (12.9, sm_90a) cut this loop after 11 steps
   // (a loop bound by a lane's own Lr miscompiles, see the header)
   const int steps = __shfl_sync(BR_FULL, Lr + Lc + 1 - COL0, 0);
 #pragma unroll 1
   for (int d = 0; d < steps; ++d) {
-    const int r = d - lane;
-    int lS = __shfl_up_sync(BR_FULL, S, 1);
-    int lSold = __shfl_up_sync(BR_FULL, Sold, 1);
-    int lD = __shfl_up_sync(BR_FULL, D, 1);
-    int lsb = __shfl_up_sync(BR_FULL, sb, 1);
+    // every left neighbour before any cell of this step is written
+    int lS[G], lSold[G], lD[G], lsb[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      lS[g] = __shfl_up_sync(BR_FULL, S[g], 1);
+      lSold[g] = __shfl_up_sync(BR_FULL, Sold[g], 1);
+      lD[g] = __shfl_up_sync(BR_FULL, D[g], 1);
+      lsb[g] = __shfl_up_sync(BR_FULL, sb[g], 1);
+    }
+    if constexpr (G == 2) {  // group 1's lane 0: group 0's lane 31
+      const int tS = __shfl_sync(BR_FULL, S[0], 31);
+      const int tSold = __shfl_sync(BR_FULL, Sold[0], 31);
+      const int tD = __shfl_sync(BR_FULL, D[0], 31);
+      const int tsb = __shfl_sync(BR_FULL, sb[0], 31);
+      if (lane == 0) {
+        lS[1] = tS;
+        lSold[1] = tSold;
+        lD[1] = tD;
+        lsb[1] = tsb;
+      }
+    }
     if constexpr (COL0 == 1) {
       if (lane == 0) {  // column 0 (Ins from the start): its cell at row
         // r, and the left neighbour of column 1 at rows r and r-1
-        BR_CHECK(r > Lr || r * NC < greedy_tb_words<T>() - 5);
+        const int r = d;
+        BR_CHECK(r > Lr || r * NC < WORDS - 5);
         if (r <= Lr)
           tb[r * NC] = r == 0 ? TB(TB_START, TB_START, TB_START)
                               : TB(OP_INS, r > 1 ? OP_INS : TB_START,
                                    TB_START);
-        lS = r == 0 ? 0 : GAP_OPEN + GAP_EXT * r;
-        lSold = r <= 1 ? 0 : GAP_OPEN + GAP_EXT * (r - 1);
-        lD = NEG_SCORE;
-        lsb = r == 0 ? TB_START : OP_INS;
+        lS[0] = r == 0 ? 0 : GAP_OPEN + GAP_EXT * r;
+        lSold[0] = r <= 1 ? 0 : GAP_OPEN + GAP_EXT * (r - 1);
+        lD[0] = NEG_SCORE;
+        lsb[0] = r == 0 ? TB_START : OP_INS;
       }
     }
-    const uint32_t xr = __shfl_sync(BR_FULL, xl, (r - 1) & 31);
-    if (j <= Lc && r >= 0 && r <= Lr) {
-      int nS, nI, nD, nsb;
-      uint16_t code;
-      if (r == 0) {  // the first row: Del from the start
-        nS = j == 0 ? 0 : GAP_OPEN + GAP_EXT * j;
-        nI = NEG_SCORE;
-        nD = NEG_SCORE;
-        nsb = j == 0 ? TB_START : OP_DEL;
-        code = TB(nsb, TB_START, j > 1 ? OP_DEL : TB_START);
-      } else if (j == 0) {  // the first column: Ins from the start
-        nS = GAP_OPEN + GAP_EXT * r;
-        nI = nS;
-        nD = NEG_SCORE;
-        nsb = OP_INS;
-        code = TB(OP_INS, r > 1 ? OP_INS : TB_START, TB_START);
-      } else {
-        // Ins: consume x against a gap (from row r-1, this lane's cell)
-        int ext = I + GAP_EXT, opn = S + GAP_OPEN + GAP_EXT;
-        nI = ext > opn ? ext : opn;
-        const int ib = ext > opn ? OP_INS : sb;
-        // Del: consume y against a gap (from column j-1, the left lane)
-        ext = lD + GAP_EXT;
-        opn = lS + GAP_OPEN + GAP_EXT;
-        nD = ext > opn ? ext : opn;
-        const int db = ext > opn ? OP_DEL : lsb;
-        const bool m = xr == yj;
-        int best = lSold + (m ? 1 : -1);
-        nsb = m ? OP_MATCH : OP_SUBST;
-        if (nI > best) { best = nI; nsb = OP_INS; }
-        if (nD > best) { best = nD; nsb = OP_DEL; }
-        nS = best;
-        code = TB(nsb, ib, db);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int r = d - lane - 32 * g, j = jg[g];
+      uint32_t xr = __shfl_sync(BR_FULL, xl[0], (r - 1) & 31);
+      if constexpr (G == 2) {
+        const uint32_t x1 = __shfl_sync(BR_FULL, xl[1], (r - 1) & 31);
+        if (r - 1 >= 32) xr = x1;
       }
-      BR_CHECK(r * NC + j < greedy_tb_words<T>() - 5);
-      tb[r * NC + j] = code;
-      Sold = S;
-      S = nS;
-      I = nI;
-      D = nD;
-      sb = nsb;
+      if (j <= Lc && r >= 0 && r <= Lr) {
+        int nS, nI, nD, nsb;
+        uint16_t code;
+        if (r == 0) {  // the first row: Del from the start
+          nS = j == 0 ? 0 : GAP_OPEN + GAP_EXT * j;
+          nI = NEG_SCORE;
+          nD = NEG_SCORE;
+          nsb = j == 0 ? TB_START : OP_DEL;
+          code = TB(nsb, TB_START, j > 1 ? OP_DEL : TB_START);
+        } else if (j == 0) {  // the first column: Ins from the start
+          nS = GAP_OPEN + GAP_EXT * r;
+          nI = nS;
+          nD = NEG_SCORE;
+          nsb = OP_INS;
+          code = TB(OP_INS, r > 1 ? OP_INS : TB_START, TB_START);
+        } else {
+          // Ins: consume x against a gap (from row r-1, this lane's cell)
+          int ext = I[g] + GAP_EXT, opn = S[g] + GAP_OPEN + GAP_EXT;
+          nI = ext > opn ? ext : opn;
+          const int ib = ext > opn ? OP_INS : sb[g];
+          // Del: consume y against a gap (from column j-1, the left lane)
+          ext = lD[g] + GAP_EXT;
+          opn = lS[g] + GAP_OPEN + GAP_EXT;
+          nD = ext > opn ? ext : opn;
+          const int db = ext > opn ? OP_DEL : lsb[g];
+          const bool m = xr == yj[g];
+          int best = lSold[g] + (m ? 1 : -1);
+          nsb = m ? OP_MATCH : OP_SUBST;
+          if (nI > best) { best = nI; nsb = OP_INS; }
+          if (nD > best) { best = nD; nsb = OP_DEL; }
+          nS = best;
+          code = TB(nsb, ib, db);
+        }
+        BR_CHECK(r * NC + j < WORDS - 5);
+        tb[r * NC + j] = code;
+        Sold[g] = S[g];
+        S[g] = nS;
+        I[g] = nI;
+        D[g] = nD;
+        sb[g] = nsb;
+      }
     }
   }
   __syncwarp();
@@ -295,13 +346,14 @@ __device__ __forceinline__ BrAttempt<T> greedy_attempt(
   bool good = false;
   int off = 0;
   if (lane <= it_max &&
-      greedy_offset<T>(tb, NC, k, k - 1 + lane, k + 1 + lane, &off)) {
+      greedy_offset<T, WORDS>(tb, NC, k, k - 1 + lane, k + 1 + lane,
+                              &off)) {
     bool okc = rem - lane >= nb;
     T km = wnext;
 #pragma unroll 4
     for (int t = 0; t < nb; ++t) {
       km = br_add(km, code_at(a.codes, i + lane + t, a.CHUNK), kmask);
-      okc &= br_probe(a.table, km, k);
+      okc &= a.probe(km, k);
     }
     good = okc;
   }
@@ -324,10 +376,10 @@ __device__ __forceinline__ BrAttempt<T> greedy_attempt(
   return res;
 }
 
-template <class T>
+template <class T, class P>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
-    greedy_sites_kernel(BrSites a, int ms, int nb) {
-  __shared__ uint16_t sh_tb[BR_WARP_SITES][greedy_tb_words<T>()];
+    greedy_sites_kernel(BrSites<P> a, int ms, int nb) {
+  __shared__ uint16_t sh_tb[BR_WARP_SITES][greedy_tb_words<T, P>()];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
@@ -339,18 +391,18 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
   br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-template <class T>
+template <class T, class P>
 static int greedy_sites_launch(
-    const void* codes, const void* table, const void* kmers,
+    const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int ms, int nb, int NS,
     void* succ, void* s_cap, void* rec_p, void* rec_c, void* rec_s,
     void* rec_e, void* stream) {
-  BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
-                            rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
-                            rec_c, rec_s, rec_e);
-  greedy_sites_kernel<T><<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                           BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(
+  BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
+                               rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
+                               rec_c, rec_s, rec_e);
+  greedy_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                              BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(
       a, ms, nb);
   return (int)cudaGetLastError();
 }
@@ -360,14 +412,10 @@ static int greedy_sites_launch(
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int ms, int nb, int NS,  \
       void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
-      void *rec_e, void *stream
-#define GREEDY_PASS                                                       \
-  codes, table, kmers, s_pos, n_sites, rstart, rlen, CHUNK, R, k, ms, nb, \
-      NS, succ, s_cap, rec_p, rec_c, rec_s, rec_e, stream
+      void *rec_e
+#define GREEDY_LAUNCH(T, probe)                                           \
+  greedy_sites_launch<T>(codes, probe, kmers, s_pos, n_sites, rstart,     \
+                         rlen, CHUNK, R, k, ms, nb, NS, succ, s_cap,      \
+                         rec_p, rec_c, rec_s, rec_e, stream)
 
-extern "C" int br_greedy_sites(GREEDY_ARGS) {
-  return greedy_sites_launch<uint32_t>(GREEDY_PASS);
-}
-extern "C" int br_greedy_sites64(GREEDY_ARGS) {
-  return greedy_sites_launch<uint64_t>(GREEDY_PASS);
-}
+BR_SITE_ENTRIES(br_greedy_sites, GREEDY_ARGS, GREEDY_LAUNCH)

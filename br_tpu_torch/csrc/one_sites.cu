@@ -27,13 +27,15 @@
 // (16,384 blocks of 2 on a 2^20 chunk, 4,096 on a 2^18 one) fill every
 // SM, and a block frees its slot when the slower of its two chains ends.
 //
-// Both register widths from one source: br_one_sites (uint32_t, k <= 15)
-// and br_one_sites64 (uint64_t, k = 17), the same code.
+// Three instantiations from one source: br_one_sites (uint32_t, a
+// bitfield at k <= 15), br_one_sites64 (uint64_t, a bitfield at k = 17)
+// and br_one_sites_h (uint64_t, a HashSet's sorted table at any k <= 31,
+// its code windows two words wide), the same code.
 #include "sites_common.cuh"
 
-template <class T>
+template <class T, class P>
 __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
-    one_sites_kernel(BrSites a, int c) {
+    one_sites_kernel(BrSites<P> a, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_PAIR_SITES + warp;
   if (sid >= a.NS) return;
@@ -43,18 +45,19 @@ __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
   br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-template <class T>
+template <class T, class P>
 static int one_sites_launch(
-    const void* codes, const void* table, const void* kmers,
+    const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int c, int NS, void* succ,
     void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e,
     void* stream) {
-  BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
-                            rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
-                            rec_c, rec_s, rec_e);
-  one_sites_kernel<T><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
-                        32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(a, c);
+  BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
+                               rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
+                               rec_c, rec_s, rec_e);
+  one_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
+                           32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(
+      a, c);
   return (int)cudaGetLastError();
 }
 
@@ -63,14 +66,10 @@ static int one_sites_launch(
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int c, int NS,           \
       void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
-      void *rec_e, void *stream
-#define ONE_PASS                                                          \
-  codes, table, kmers, s_pos, n_sites, rstart, rlen, CHUNK, R, k, c, NS,  \
-      succ, s_cap, rec_p, rec_c, rec_s, rec_e, stream
+      void *rec_e
+#define ONE_LAUNCH(T, probe)                                              \
+  one_sites_launch<T>(codes, probe, kmers, s_pos, n_sites, rstart, rlen,  \
+                      CHUNK, R, k, c, NS, succ, s_cap, rec_p, rec_c,      \
+                      rec_s, rec_e, stream)
 
-extern "C" int br_one_sites(ONE_ARGS) {
-  return one_sites_launch<uint32_t>(ONE_PASS);
-}
-extern "C" int br_one_sites64(ONE_ARGS) {
-  return one_sites_launch<uint64_t>(ONE_PASS);
-}
+BR_SITE_ENTRIES(br_one_sites, ONE_ARGS, ONE_LAUNCH)

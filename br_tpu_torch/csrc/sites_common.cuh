@@ -28,9 +28,12 @@
 // after the stop position inside the read (a lower bound over s_pos, in
 // place of the JAX nt table).
 //
-// Every function on a k-mer is a template on its register type T
-// (uint32_t for k <= 15, uint64_t for k = 17); each site kernel's source
-// instantiates both and has one entry point for each.
+// Every function on a k-mer is a template on its register type T and on
+// the set's probe policy P (common.cuh): BrBitProbe, the bitfield, with
+// T = uint32_t for k <= 15 and uint64_t for k = 17; BrSortedProbe, the
+// sorted table of a HashSet, with T = uint64_t for any k <= 31.  Each
+// site kernel's source instantiates all three and has one entry point for
+// each (the sorted one named <entry>_h, which takes the table's levels).
 //
 // Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
 // count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
@@ -67,10 +70,12 @@ __device__ __forceinline__ uint32_t code_at(const uint8_t* codes, int i,
 }
 
 // Everything a site kernel reads and writes.  kmers is K1's output:
-// int32 k-mers for k <= 15, int64 for k = 17 (br_kmer_at).
+// int32 k-mers for a bitfield at k <= 15, int64 past it and for a sorted
+// table (br_kmer_at); probe is the set's membership test.
+template <class P>
 struct BrSites {
   const uint8_t* codes;
-  const uint32_t* table;
+  P probe;
   const void* kmers;
   const int32_t* s_pos;
   const int32_t* n_sites;
@@ -96,23 +101,29 @@ struct BrAttempt {
 };
 
 // K1's k-mer at position p in the register type.
-template <class T>
-__device__ __forceinline__ T br_kmer_at(const BrSites& a, int p) {
+template <class T, class P>
+__device__ __forceinline__ T br_kmer_at(const BrSites<P>& a, int p) {
   if constexpr (sizeof(T) == 8)
     return (T)static_cast<const int64_t*>(a.kmers)[p];
   else
     return (T)static_cast<const int32_t*>(a.kmers)[p];
 }
 
-// codes a register holds (16 or 32), and the window lag of the One
-// attempt: the most codes before a probe's last one, k - 1 <= 14 or 16
+// codes a register holds (16 or 32); the window lag of the One attempt,
+// the most codes before a probe's last one, k - 1 <= 14, 16 or 30 (the
+// largest k of the instantiation, kMaxK); and the 32-code words of an
+// attempt's code window, two where a round's codes pass 32 positions
 template <class T>
 __host__ __device__ constexpr int br_reg_codes() {
   return 4 * (int)sizeof(T);
 }
-template <class T>
+template <class T, class P>
 __host__ __device__ constexpr int br_lag() {
-  return sizeof(T) == 8 ? 16 : 14;
+  return P::template kMaxK<T> - 1;
+}
+template <class T, class P>
+__host__ __device__ constexpr int br_win_words() {
+  return br_lag<T, P>() > 16 ? 2 : 1;
 }
 
 // ---------------------------------------------------------------------
@@ -123,11 +134,11 @@ __host__ __device__ constexpr int br_lag() {
 // Alternatives for the last base of km (mod.rs:114-116), lane a < 4
 // probing base ^ a: returns how many of base ^ a are solid; *repl = base
 // ^ (sum of those a), the one alternative when the count is 1.
-template <class T>
-__device__ __forceinline__ int br_alt_last_warp(
-    const uint32_t* __restrict__ table, T km, int k, int lane, T* repl) {
+template <class T, class P>
+__device__ __forceinline__ int br_alt_last_warp(const P& probe, T km, int k,
+                                                int lane, T* repl) {
   const T base = (km >> 2) << 2;
-  const bool v = lane < 4 && br_probe(table, base ^ (T)lane, k);
+  const bool v = lane < 4 && probe(base ^ (T)lane, k);
   const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
   *repl = base ^ (T)(((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3));
   return __popc(m);
@@ -136,11 +147,11 @@ __device__ __forceinline__ int br_alt_last_warp(
 // Successors of km (mod.rs:118-128), lane a < 4 probing add(km, a):
 // returns how many are solid; *code = the sum of those a, the one
 // successor's base when the count is 1.
-template <class T>
-__device__ __forceinline__ int br_alt_next_warp(
-    const uint32_t* __restrict__ table, T km, int k, T kmask, int lane,
-    uint32_t* code) {
-  const bool v = lane < 4 && br_probe(table, br_add(km, lane, kmask), k);
+template <class T, class P>
+__device__ __forceinline__ int br_alt_next_warp(const P& probe, T km, int k,
+                                                T kmask, int lane,
+                                                uint32_t* code) {
+  const bool v = lane < 4 && probe(br_add(km, lane, kmask), k);
   const uint32_t m = __ballot_sync(BR_FULL, v) & 0xFu;
   *code = ((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3);
   return __popc(m);
@@ -149,7 +160,9 @@ __device__ __forceinline__ int br_alt_next_warp(
 // Lane m < NB-1 (NB = br_reg_codes<T>(): 15 lanes for uint32_t, 31 for
 // uint64_t): the register km after the m+1 adds of code_at(from), ...,
 // code_at(from + m), by an inclusive shuffle scan of the lanes' codes
-// (each lane loads one).  Other lanes get a value nobody may use.
+// (each lane loads one).  Other lanes get a value nobody may use.  The
+// dirty simulation and err_len take lanes m < k <= 31: at k = 31 lane 30
+// rolls 31 codes (62 bits) into km, all of it inside uint64_t.
 template <class T>
 __device__ __forceinline__ T br_roll_warp(const uint8_t* codes, int CHUNK,
                                           T km, int from, int lane,
@@ -165,35 +178,57 @@ __device__ __forceinline__ T br_roll_warp(const uint8_t* codes, int CHUNK,
   return (hi | x) & kmask;
 }
 
-// 32 codes of an attempt's window, at i+base .. i+base+31 (code_at, so
-// clipped into the chunk), held alike in every lane: bit j of lo / hi is
-// the low / high bit of the code at i+base+j, loaded one code a lane and
-// gathered by two ballots.  An attempt orders its probes so that a round
-// of 32 lanes needs codes within 29 positions (a probe's k-mer takes at
-// most its last k <= 17 codes), and loads the window again for a round
-// past it: any confirm count c works with the codes in registers.
+// 32 * NW codes of an attempt's window, at i+base .. i+base+32*NW-1
+// (code_at, so clipped into the chunk), held alike in every lane: bit j
+// of lo[w] / hi[w] is the low / high bit of the code at i+base+32w+j,
+// loaded one code a lane a word and gathered by two ballots a word.  An
+// attempt orders its probes so that a round of 32 lanes needs codes
+// within 13 positions past its first probe's last code, plus the k - 1
+// before it, and loads the window again for a round past it: any confirm
+// count c works with the codes in registers.  One word holds that for
+// k <= 17 (29 positions), two for k <= 31 (43 positions).
+template <int NW>
 struct BrWindow {
-  uint32_t lo, hi;
+  uint32_t lo[NW], hi[NW];
   int base;
 };
 
-__device__ __forceinline__ BrWindow br_window_warp(const uint8_t* codes,
-                                                   int CHUNK, int i,
-                                                   int base, int lane) {
-  const uint32_t x = code_at(codes, i + base + lane, CHUNK);
-  return {__ballot_sync(BR_FULL, x & 1u), __ballot_sync(BR_FULL, x >> 1),
-          base};
+template <int NW>
+__device__ __forceinline__ BrWindow<NW> br_window_warp(const uint8_t* codes,
+                                                       int CHUNK, int i,
+                                                       int base, int lane) {
+  BrWindow<NW> w;
+#pragma unroll
+  for (int v = 0; v < NW; ++v) {
+    const uint32_t x = code_at(codes, i + base + 32 * v + lane, CHUNK);
+    w.lo[v] = __ballot_sync(BR_FULL, x & 1u);
+    w.hi[v] = __ballot_sync(BR_FULL, x >> 1);
+  }
+  w.base = base;
+  return w;
 }
 
-// The n (1..15) codes of the window ending at i+e, the first in the high
+// bits s .. s+15 of a window's bit plane
+template <int NW>
+__device__ __forceinline__ uint32_t br_plane(const uint32_t (&x)[NW],
+                                             int s) {
+  if constexpr (NW == 1) {
+    return x[0] >> s;
+  } else {
+    return (uint32_t)((((uint64_t)x[1] << 32) | x[0]) >> s);
+  }
+}
+
+// The n (1..16) codes of the window ending at i+e, the first in the high
 // bits: a register's last n bases after it absorbed them (i+base <= i+e-n+1,
-// e < base+32).
-__device__ __forceinline__ uint32_t br_span(const BrWindow& w, int e,
+// e < base+32*NW).
+template <int NW>
+__device__ __forceinline__ uint32_t br_span(const BrWindow<NW>& w, int e,
                                             int n) {
   const int s = e - n + 1 - w.base;
   const uint32_t m = (1u << n) - 1u;
-  const uint32_t l = __brev((w.lo >> s) & m) >> (32 - n);
-  const uint32_t h = __brev((w.hi >> s) & m) >> (32 - n);
+  const uint32_t l = __brev(br_plane(w.lo, s) & m) >> (32 - n);
+  const uint32_t h = __brev(br_plane(w.hi, s) & m) >> (32 - n);
   // bits l and h of each code to the even and odd bits
   uint32_t x = l | (h << 16);
   x = (x & 0xFF0000FFu) | ((x & 0x00FF0000u) >> 8) | ((x & 0x0000FF00u) << 8);
@@ -203,10 +238,10 @@ __device__ __forceinline__ uint32_t br_span(const BrWindow& w, int e,
   return x;
 }
 
-// br_span of n (1..17) codes in the register type: past 16 codes, the
+// br_span of n (1..32) codes in the register type: past 16 codes, the
 // first n-16 in the high word.
-template <class T>
-__device__ __forceinline__ T br_span_t(const BrWindow& w, int e, int n) {
+template <class T, int NW>
+__device__ __forceinline__ T br_span_t(const BrWindow<NW>& w, int e, int n) {
   if constexpr (sizeof(T) == 8) {
     if (n > 16)
       return ((uint64_t)br_span(w, e - 16, n - 16) << 32) | br_span(w, e, 16);
@@ -216,9 +251,9 @@ __device__ __forceinline__ T br_span_t(const BrWindow& w, int e, int n) {
 
 // km after absorbing the m >= 1 codes of the window ending at i+e: the m
 // br_adds of a thread in one step, since only the last k codes remain.
-template <class T>
-__device__ __forceinline__ T br_roll_window(const BrWindow& w, T km, int e,
-                                            int m, int k, T kmask) {
+template <class T, int NW>
+__device__ __forceinline__ T br_roll_window(const BrWindow<NW>& w, T km,
+                                            int e, int m, int k, T kmask) {
   const T hi = m < k ? km << (2 * m) : T(0);
   return (hi | br_span_t<T>(w, e, m < k ? m : k)) & kmask;
 }
@@ -229,27 +264,28 @@ __device__ __forceinline__ T br_roll_window(const BrWindow& w, T km, int e,
 // one_more among several.  corr is the gated alternative k-mer.  Its
 // 1 + 3*(c+1) probes are independent: lane idx = 3*s + off takes k-mer s
 // of scenario off (rounds of 32 past 32 probes, a round's codes within
-// s0-L .. s0+13 for its first s0, L = br_lag<T>() >= k-1), and the
+// s0-L .. s0+13 for its first s0, L = br_lag<T, P>() >= k-1), and the
 // scenario masks are OR-reduced.
-template <class T>
+template <class T, class P>
 __device__ __forceinline__ BrAttempt<T> br_one_attempt_warp(
-    const BrSites& a, int c, int i, T corr, int lenf, int32_t* erow,
+    const BrSites<P>& a, int c, int i, T corr, int lenf, int32_t* erow,
     int lane) {
-  constexpr int L = br_lag<T>();
+  constexpr int L = br_lag<T, P>();
+  constexpr int NW = br_win_words<T, P>();
   const T kmask = br_kmask<T>(a.k);
   const int rem = lenf - i;
-  const bool corr_ok = br_probe(a.table, corr, a.k);
+  const bool corr_ok = a.probe(corr, a.k);
   const int tot = 3 * (c + 1);
   uint32_t failm = 0, lastm = 0;
   for (int r0 = 0; r0 < tot; r0 += 32) {
     const int s0 = r0 / 3;
-    const BrWindow w = br_window_warp(a.codes, a.CHUNK, i,
-                                      s0 > L ? s0 - L : 0, lane);
+    const BrWindow<NW> w = br_window_warp<NW>(a.codes, a.CHUNK, i,
+                                              s0 > L ? s0 - L : 0, lane);
     const int idx = r0 + lane;
     if (idx < tot) {
       const int s = idx / 3, off = idx - 3 * s;
       const T km = br_roll_window(w, corr, off + s, s + 1, a.k, kmask);
-      const bool v = br_probe(a.table, km, a.k);
+      const bool v = a.probe(km, a.k);
       if (s < c) {
         if (!v) failm |= 1u << off;
       } else if (v) {
@@ -286,8 +322,8 @@ __device__ __forceinline__ BrAttempt<T> br_one_attempt_warp(
 // succ and s_cap; lanes nrec..SLOTS-1 the rec_p sentinels.  The site's
 // read is found by a 32-way warp search of rstart (two dependent loads
 // for 512 slots, no staging in shared memory).
-template <class T, class Attempt>
-__device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
+template <class T, class P, class Attempt>
+__device__ __forceinline__ void br_site_chain_warp(const BrSites<P>& a,
                                                    int sid, int lane,
                                                    Attempt& attempt) {
   const int n_eff = min(a.n_sites[0], a.NS);
@@ -306,7 +342,7 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
     while (true) {
       T corr;
       BrAttempt<T> r = {false, false, T(0), 0, 0};
-      if (br_alt_last_warp(a.table, reg, k, lane, &corr) == 1) {
+      if (br_alt_last_warp(a.probe, reg, k, lane, &corr) == 1) {
         int32_t* erow = nrec < BR_SLOTS
                             ? a.rec_e + (size_t)(rb + nrec) * a.EW
                             : nullptr;
@@ -331,7 +367,7 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
       const int st0 = applied ? 0 : t;
       const T sm = br_roll_warp(a.codes, a.CHUNK, sreg0, si0, lane, kmask);
       const bool live = lane < k && st0 + lane < k && si0 + lane < lenf;
-      const bool v = live && br_probe(a.table, sm, k);
+      const bool v = live && a.probe(sm, k);
       const uint32_t vm = __ballot_sync(BR_FULL, v);
       const bool prev = lane == 0 ? applied : ((vm >> (lane - 1)) & 1u);
       const bool ev = lane < k && (!live || (!v && prev));
@@ -375,15 +411,17 @@ __device__ __forceinline__ void br_site_chain_warp(const BrSites& a,
   if (lane >= nrec && lane < BR_SLOTS) a.rec_p[rb + lane] = BR_BIG;
 }
 
-// The entry points' struct, from the C arguments every site kernel takes.
-static inline BrSites br_sites_args(
-    const void* codes, const void* table, const void* kmers,
+// The entry points' struct, from the C arguments every site kernel takes
+// and the set's probe.
+template <class P>
+static inline BrSites<P> br_sites_args(
+    const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int NS, int EW, void* succ,
     void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e) {
-  BrSites a;
+  BrSites<P> a;
   a.codes = (const uint8_t*)codes;
-  a.table = (const uint32_t*)table;
+  a.probe = probe;
   a.kmers = kmers;
   a.s_pos = (const int32_t*)s_pos;
   a.n_sites = (const int32_t*)n_sites;
@@ -407,3 +445,20 @@ static inline BrSites br_sites_args(
 static inline int br_warp_site_blocks(int NS, int per_block) {
   return (NS + per_block - 1) / per_block;
 }
+
+// The three entry points of a site kernel: <entry> (uint32_t, bitfield),
+// <entry>64 (uint64_t, bitfield) and <entry>_h (uint64_t, sorted table,
+// levels before the stream); ARGS is the parameter list up to the stream,
+// whose second parameter is `const void* table`, and LAUNCH(T, probe)
+// the launch with the register type and the probe in the table's place.
+#define BR_SITE_ENTRIES(entry, ARGS, LAUNCH)                              \
+  extern "C" int entry(ARGS, void* stream) {                              \
+    return LAUNCH(uint32_t, BrBitProbe{(const uint32_t*)table});          \
+  }                                                                       \
+  extern "C" int entry##64(ARGS, void* stream) {                          \
+    return LAUNCH(uint64_t, BrBitProbe{(const uint32_t*)table});          \
+  }                                                                       \
+  extern "C" int entry##_h(ARGS, int levels, void* stream) {              \
+    return LAUNCH(uint64_t, (BrSortedProbe{(const uint64_t*)table,        \
+                                           levels}));                    \
+  }

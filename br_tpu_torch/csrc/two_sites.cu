@@ -19,9 +19,10 @@
 // of t1 and of t2, the successors of corr, second, t1 and t0, and t3);
 // round B, for every scenario its candidate, its c window k-mers and its
 // one_more k-mer, 13*(c+2) probes that depend only on round A's
-// candidates and on codes.  The codes come from a window of 32 codes
-// held in every lane (br_window_warp), from i and, for a pass of round B
-// past its first 128 probes (c > 7), from further on; the window reaches
+// candidates and on codes.  The codes come from a window of 32 codes (64
+// for a sorted table, k <= 31) held in every lane (br_window_warp), from
+// i and, for a pass of round B past its first 96 probes (c > 5), from
+// further on; the window reaches
 // past the read's end
 // into the next slot or stale slack, and only the rem gating (:389-411,
 // :444, :468), applied to the masks after the probes, keeps those bases
@@ -41,8 +42,11 @@
 // scenario's candidate and one_more register by shuffle from lane s);
 // NS warps, 2 a block, fill every SM.
 //
-// Both register widths from one source: br_two_sites (uint32_t, k <= 15)
-// and br_two_sites64 (uint64_t, k = 17), the same code.
+// Three instantiations from one source: br_two_sites (uint32_t, a
+// bitfield at k <= 15), br_two_sites64 (uint64_t, a bitfield at k = 17)
+// and br_two_sites_h (uint64_t, a HashSet's sorted table at any k <= 31),
+// the same code; a pass's probes go out together through the probe
+// policy's many() (for the sorted table its searches step together).
 #include "sites_common.cuh"
 
 #define N_SCEN 13
@@ -101,15 +105,16 @@ __device__ __forceinline__ uint32_t off_at_most(int lim, uint32_t le0,
 
 // make_two_attempt32 for one site, called by every lane of the warp with
 // the same arguments; every lane returns the same result.
-template <class T>
+template <class T, class P>
 __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
-    const BrSites& a, int c, int lane, int i, T reg, T corr, int lenf,
+    const BrSites<P>& a, int c, int lane, int i, T reg, T corr, int lenf,
     int32_t* erow) {
-  constexpr int L = br_lag<T>() + 1;
+  constexpr int L = br_lag<T, P>() + 1;
+  constexpr int NW = br_win_words<T, P>();
   const int k = a.k;
   const T kmask = br_kmask<T>(k);
   const int rem = lenf - i;
-  BrWindow w = br_window_warp(a.codes, a.CHUNK, i, 0, lane);
+  BrWindow<NW> w = br_window_warp<NW>(a.codes, a.CHUNK, i, 0, lane);
   auto add = [&](T km, uint32_t code) { return br_add(km, code, kmask); };
   auto alt = [](uint32_t m) {  // the sum of the bases a whose bit is set
     return ((m >> 1) & 1u) + 2u * ((m >> 2) & 1u) + 3u * (m >> 3);
@@ -132,7 +137,7 @@ __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
   const T qa = g == 0 ? b1 ^ (T)la : g == 1 ? b2 ^ (T)la
                : g < 6 ? add(nb, la) : t3;
   const uint32_t M =
-      __ballot_sync(BR_FULL, lane < 25 && br_probe(a.table, qa, k));
+      __ballot_sync(BR_FULL, lane < 25 && a.probe(qa, k));
   const uint32_t m1 = M & 0xFu, m2 = (M >> 4) & 0xFu;
   const uint32_t mc = (M >> 8) & 0xFu, msec = (M >> 12) & 0xFu;
   const uint32_t mt1 = (M >> 16) & 0xFu, mt0 = (M >> 20) & 0xFu;
@@ -183,24 +188,26 @@ __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
   // its candidate, 1..c the window k-mer after j codes from APPLY_OFF,
   // c+1 the one_more k-mer after c+1 codes from CORRECT_OFF.  A pass of
   // TWO_UNROLL rounds spans j0 .. j0+8, so its codes lie within
-  // j0-L .. j0+11 (L = k_max, 15 or 17): the window is loaded again at
+  // j0-L .. j0+11 (L = k_max, 15, 17 or 31): the window is loaded again at
   // j0-L past the first.
   // Probes of scenarios that cannot keep are not loaded (they count as
   // failed, which changes nothing).
-  const int P = N_SCEN * (c + 2);
+  const int NP = N_SCEN * (c + 2);
   uint32_t failm = 0, morem = 0;
-  for (int b0 = 0; b0 < P; b0 += 32 * TWO_UNROLL) {
+  for (int b0 = 0; b0 < NP; b0 += 32 * TWO_UNROLL) {
     const int j0 = b0 / N_SCEN;
     if (b0 > 0)
-      w = br_window_warp(a.codes, a.CHUNK, i, j0 > L ? j0 - L : 0, lane);
-    uint32_t word[TWO_UNROLL], bit[TWO_UNROLL];
+      w = br_window_warp<NW>(a.codes, a.CHUNK, i, j0 > L ? j0 - L : 0,
+                             lane);
+    T kms[TWO_UNROLL];
+    bool needs[TWO_UNROLL];
     int sc[TWO_UNROLL];
     bool om[TWO_UNROLL];
 #pragma unroll
-    for (int u = 0; u < TWO_UNROLL; ++u) {  // issue the loads
+    for (int u = 0; u < TWO_UNROLL; ++u) {  // set up the probes
       const int idx = b0 + 32 * u + lane;
-      const bool in = idx < P;
-      const int id = in ? idx : P - 1;  // idle lanes: a probe of this pass
+      const bool in = idx < NP;
+      const int id = in ? idx : NP - 1;  // idle lanes: a probe of this pass
       const int j = id / N_SCEN, s = id - N_SCEN * j;
       const T k2 = __shfl_sync(BR_FULL, km2v, s);
       const T mb = __shfl_sync(BR_FULL, mbv, s);
@@ -211,17 +218,16 @@ __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
       const T base = more ? mb : k2;
       const T rolled = br_roll_window(w, base, off + (m ? m : 1) - 1,
                                       m ? m : 1, k, kmask);
-      const T km = m ? rolled : base;
-      const bool need = in && (((more ? mored : scored) >> s) & 1u);
-      const T bi = br_canonical(km, k) >> 1;  // br_probe's bit
-      word[u] = need ? __ldg(a.table + (bi >> 5)) : 0u;
-      bit[u] = (uint32_t)bi & 31u;
+      kms[u] = m ? rolled : base;
+      needs[u] = in && (((more ? mored : scored) >> s) & 1u);
       sc[u] = in ? s : 31;
       om[u] = more;
     }
+    // all of the pass's probes at once, then their results
+    const uint32_t hits = a.probe.many(kms, needs, k);
 #pragma unroll
-    for (int u = 0; u < TWO_UNROLL; ++u) {  // then use them
-      const uint32_t v = (word[u] >> bit[u]) & 1u;
+    for (int u = 0; u < TWO_UNROLL; ++u) {
+      const uint32_t v = (hits >> u) & 1u;
       failm |= (uint32_t)(!om[u] && !v) << sc[u];
       morem |= (uint32_t)(om[u] && v) << sc[u];
     }
@@ -254,9 +260,9 @@ __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
   return res;
 }
 
-template <class T>
+template <class T, class P>
 __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
-    two_sites_kernel(BrSites a, int c) {
+    two_sites_kernel(BrSites<P> a, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_PAIR_SITES + warp;
   if (sid >= a.NS) return;
@@ -266,18 +272,19 @@ __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
   br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-template <class T>
+template <class T, class P>
 static int two_sites_launch(
-    const void* codes, const void* table, const void* kmers,
+    const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int c, int NS, void* succ,
     void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e,
     void* stream) {
-  BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
-                            rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
-                            rec_c, rec_s, rec_e);
-  two_sites_kernel<T><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
-                        32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(a, c);
+  BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
+                               rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
+                               rec_c, rec_s, rec_e);
+  two_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
+                           32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(
+      a, c);
   return (int)cudaGetLastError();
 }
 
@@ -286,14 +293,10 @@ static int two_sites_launch(
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int c, int NS,           \
       void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
-      void *rec_e, void *stream
-#define TWO_PASS                                                          \
-  codes, table, kmers, s_pos, n_sites, rstart, rlen, CHUNK, R, k, c, NS,  \
-      succ, s_cap, rec_p, rec_c, rec_s, rec_e, stream
+      void *rec_e
+#define TWO_LAUNCH(T, probe)                                              \
+  two_sites_launch<T>(codes, probe, kmers, s_pos, n_sites, rstart, rlen,  \
+                      CHUNK, R, k, c, NS, succ, s_cap, rec_p, rec_c,      \
+                      rec_s, rec_e, stream)
 
-extern "C" int br_two_sites(TWO_ARGS) {
-  return two_sites_launch<uint32_t>(TWO_PASS);
-}
-extern "C" int br_two_sites64(TWO_ARGS) {
-  return two_sites_launch<uint64_t>(TWO_PASS);
-}
+BR_SITE_ENTRIES(br_two_sites, TWO_ARGS, TWO_LAUNCH)

@@ -54,12 +54,15 @@
 //  - Brent past walk_max stays one loop of the warp, its 4 probes on 4
 //    lanes.
 //
-// Both register widths from one source: br_walk_sites (uint32_t, k <= 15)
-// and br_walk_sites64 (uint64_t, k = 17), the same code.  The history
-// holds k-mers in the register type, so at k = 17 a warp's slice is
-// (walk_max+1) * 8 bytes: 130,624 B a block of 8 warps at walk_max 2040,
-// inside the 227 KB a block may ask for, at one block an SM where the
-// 32-bit history fits one more.
+// Three instantiations from one source: br_walk_sites (uint32_t, a
+// bitfield at k <= 15), br_walk_sites64 (uint64_t, a bitfield at k = 17)
+// and br_walk_sites_h (uint64_t, a HashSet's sorted table at any k <=
+// 31), the same code.  The history holds k-mers in the register type, so
+// with 64-bit registers a warp's slice is (walk_max+1) * 8 bytes: 130,624
+// B a block of 8 warps at walk_max 2040, inside the 227 KB a block may ask
+// for, at one block an SM where the 32-bit history fits one more.  With a
+// sorted table a walk step's 4 successor probes are 4 binary searches on
+// lanes 0-3, levels + 1 dependent loads where the bitfield takes one.
 #include "sites_common.cuh"
 
 #define WALK_RUN 0
@@ -77,8 +80,8 @@ struct WalkCtx {
 };
 
 // error_len: (j, k-mer after j), engine3.py:1459-1499
-template <class T>
-__device__ __forceinline__ void err_len_warp(const BrSites& a,
+template <class T, class P>
+__device__ __forceinline__ void err_len_warp(const BrSites<P>& a,
                                              const WalkCtx& w, int i,
                                              T kmer, int lenf, int lane,
                                              int* j_out, T* km_out) {
@@ -88,7 +91,7 @@ __device__ __forceinline__ void err_len_warp(const BrSites& a,
   const T kmj = br_roll_warp(a.codes, a.CHUNK, kmer, i + 1, lane,
                              br_kmask<T>(k));
   const int j = lane + 1;
-  const bool hit = lane < k && j < rem && br_probe(a.table, kmj, k);
+  const bool hit = lane < k && j < rem && a.probe(kmj, k);
   const uint32_t em = __ballot_sync(BR_FULL, lane < k && (j >= rem || hit));
   const T km_before = __shfl_up_sync(BR_FULL, kmj, 1);
   if (em) {
@@ -130,8 +133,9 @@ __device__ __forceinline__ void err_len_warp(const BrSites& a,
 // The walk from corr: status, and (n, wk) after it.  hist is the warp's
 // history slice (walk_max+1 words).  Emit words go to erow (when given):
 // ceil(n/16) of them, written by lane 0.
-template <class T>
-__device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
+template <class T, class P>
+__device__ __forceinline__ int walk_warp(const BrSites<P>& a,
+                                         const WalkCtx& w,
                                          int lane, T* hist, T corr, T fc,
                                          bool use_fc, int max_steps,
                                          int32_t* erow, int* n_out,
@@ -147,7 +151,7 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
   while (status == WALK_RUN && (use_fc || n - 1 < max_steps) &&
          n <= w.walk_max) {
     uint32_t sa;
-    const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
+    const int ns = br_alt_next_warp(a.probe, wk, k, kmask, lane, &sa);
     const T wk2 = br_add(wk, sa, kmask);
     bool decline = ns != 1;
     if (!decline) {
@@ -178,7 +182,7 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
     int lam = 0, power = 1;
     while (status == WALK_RUN) {
       uint32_t sa;
-      const int ns = br_alt_next_warp(a.table, wk, k, kmask, lane, &sa);
+      const int ns = br_alt_next_warp(a.probe, wk, k, kmask, lane, &sa);
       const T wk2 = br_add(wk, sa, kmask);
       const bool accept = use_fc && wk2 == fc;
       const bool done_fill = !use_fc && n >= max_steps;
@@ -198,9 +202,9 @@ __device__ __forceinline__ int walk_warp(const BrSites& a, const WalkCtx& w,
   return status;
 }
 
-template <class T>
+template <class T, class P>
 __device__ __forceinline__ BrAttempt<T> walk_attempt(
-    const BrSites& a, const WalkCtx& w, int mode, int c, int lane, T* hist,
+    const BrSites<P>& a, const WalkCtx& w, int mode, int c, int lane, T* hist,
     int i, T reg, T corr, int lenf, int32_t* erow) {
   int err_len;
   T fc;
@@ -226,9 +230,9 @@ __device__ __forceinline__ BrAttempt<T> walk_attempt(
   return r;
 }
 
-template <class T>
+template <class T, class P>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
-    walk_sites_kernel(BrSites a, WalkCtx w, int mode, int c) {
+    walk_sites_kernel(BrSites<P> a, WalkCtx w, int mode, int c) {
   // BR_WARP_SITES x (walk_max+1) k-mers of type T
   extern __shared__ __align__(8) unsigned char sh_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -242,16 +246,16 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
   br_site_chain_warp<T>(a, sid, lane, attempt);
 }
 
-template <class T>
+template <class T, class P>
 static int walk_sites_launch(
-    const void* codes, const void* table, const void* kmers,
+    const void* codes, P probe, const void* kmers,
     const void* V, const void* s_pos, const void* n_sites,
     const void* rstart, const void* rlen, int CHUNK, int R, int k, int c,
     int NS, int mode, int walk_max, int EW, void* succ, void* s_cap,
     void* rec_p, void* rec_c, void* rec_s, void* rec_e, void* stream) {
-  BrSites a = br_sites_args(codes, table, kmers, s_pos, n_sites, rstart,
-                            rlen, CHUNK, R, k, NS, EW, succ, s_cap, rec_p,
-                            rec_c, rec_s, rec_e);
+  BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
+                               rlen, CHUNK, R, k, NS, EW, succ, s_cap, rec_p,
+                               rec_c, rec_s, rec_e);
   WalkCtx w;
   w.V = (const uint8_t*)V;
   w.walk_max = walk_max;
@@ -260,13 +264,14 @@ static int walk_sites_launch(
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        walk_sites_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        walk_sites_kernel<T, P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     granted = smem;
   }
-  walk_sites_kernel<T><<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                         BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
+  walk_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_WARP_SITES),
+                            BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
       a, w, mode, c);
   return (int)cudaGetLastError();
 }
@@ -276,15 +281,10 @@ static int walk_sites_launch(
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int c, int NS, int mode, \
       int walk_max, int EW, void *succ, void *s_cap, void *rec_p,         \
-      void *rec_c, void *rec_s, void *rec_e, void *stream
-#define WALK_PASS                                                         \
-  codes, table, kmers, V, s_pos, n_sites, rstart, rlen, CHUNK, R, k, c,   \
-      NS, mode, walk_max, EW, succ, s_cap, rec_p, rec_c, rec_s, rec_e,    \
-      stream
+      void *rec_c, void *rec_s, void *rec_e
+#define WALK_LAUNCH(T, probe)                                             \
+  walk_sites_launch<T>(codes, probe, kmers, V, s_pos, n_sites, rstart,    \
+                       rlen, CHUNK, R, k, c, NS, mode, walk_max, EW, succ,\
+                       s_cap, rec_p, rec_c, rec_s, rec_e, stream)
 
-extern "C" int br_walk_sites(WALK_ARGS) {
-  return walk_sites_launch<uint32_t>(WALK_PASS);
-}
-extern "C" int br_walk_sites64(WALK_ARGS) {
-  return walk_sites_launch<uint64_t>(WALK_PASS);
-}
+BR_SITE_ENTRIES(br_walk_sites, WALK_ARGS, WALK_LAUNCH)

@@ -1,9 +1,14 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is a plain C entry point of one CUDA C++ source under
-``br_tpu_torch/csrc``; a source may hold several (the k-mer kernels have
-one for 32-bit registers, k <= 15, and one named ``<name>64`` for 64-bit
-registers, k = 17; K8 has a count and a pack kernel).  At first use a
+``br_tpu_torch/csrc``; a source may hold several.  The k-mer kernels have
+three instantiations (``variant``): for a solid bitfield, one for 32-bit
+registers (k <= 15) and one named ``<name>64`` for 64-bit registers
+(k = 17); for the sorted table of a ``HashSet``, one named ``<name>_h``
+(64-bit registers, a binary-search probe, any k <= 31), whose entry point
+takes the search's step count ``levels`` as its last argument before the
+stream.  K8 has a count and a pack kernel; K9 ``hash_probe`` is the
+sorted-table probe on its own.  At first use a
 source is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
 library under ``<repo>/build/kernels`` (git-ignored) and loaded with
 ``ctypes``; every pointer and the stream pass as ``c_void_p``.
@@ -57,13 +62,21 @@ KERNELS = {
     "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "p"
                     + "p"),
     "solid_pack": ("solid_build.cu", "br_solid_pack", "plipi" + "p"),
+    "hash_probe": ("hash_probe.cu", "br_hash_probe", "pi" + "pli" + "p"
+                   + "p"),
 }
-#: the 64-bit instantiations (k = 17) of the k-mer kernels: the same
-#: source and arguments, entry point ``<entry>64``.
+#: the 64-bit instantiations (a bitfield at k = 17) of the k-mer kernels:
+#: the same source and arguments, entry point ``<entry>64``.
 WIDE = ("dense_probe", "one_sites", "two_sites", "walk_sites",
         "greedy_sites", "solid_count")
+#: the sorted-table instantiations: entry point ``<entry>_h``, with
+#: ``levels`` (an int) before the stream.
+HASHED = ("dense_probe", "one_sites", "two_sites", "walk_sites",
+          "greedy_sites")
 KERNELS.update({f"{n}64": (KERNELS[n][0], KERNELS[n][1] + "64",
                            KERNELS[n][2]) for n in WIDE})
+KERNELS.update({f"{n}_h": (KERNELS[n][0], KERNELS[n][1] + "_h",
+                           KERNELS[n][2][:-1] + "ip") for n in HASHED})
 
 #: device kernels an entry point launches per call, where more than one.
 PER_CALL = {"chain_splice": 2}
@@ -99,10 +112,24 @@ def nvcc_path() -> str:
                        "machine with the GPU, where the CUDA toolkit is")
 
 
-def width(name: str, k: int) -> str:
-    """The kernel name of ``name``'s instantiation for k: the 64-bit one
-    past ``MAX_K32``."""
+def variant(name: str, k: int, kind: str = "solid") -> str:
+    """The kernel name of ``name``'s instantiation for k and a set of
+    ``kind``: ``<name>_h`` for a sorted table, else the 64-bit one past
+    ``MAX_K32``."""
+    if kind == "hash":
+        return f"{name}_h"
     return f"{name}64" if k > MAX_K32 else name
+
+
+def table_kernel(name: str, k: int, table) -> tuple:
+    """(kernel name, trailing arguments) of k-mer kernel ``name`` for a
+    device table: the ``_h`` instantiation and the search's ``levels``
+    for a sorted table, the bitfield's instantiation and none else."""
+    from br_tpu_torch.correct import device_codec as dc
+
+    kind = dc.table_kind(table)
+    extra = (dc.table_levels(table),) if kind == "hash" else ()
+    return variant(name, k, kind), extra
 
 
 def nvcc_flags() -> list:

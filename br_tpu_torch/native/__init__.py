@@ -8,8 +8,9 @@ reads in parallel (the C call releases the GIL) and collects them in
 order (src/lib.rs:93-132).  The library is built by ``build.build`` at
 first use; a build or load that fails raises.
 
-Only ``br_create_solid`` is bound: the port has no ``HashSet`` yet
-(ROADMAP A5), so ``br_create_hash`` stays unbound in the C++ source.
+A ``SolidSet`` goes in by ``br_create_solid`` (its bitfield), a
+``HashSet`` by ``br_create_hash`` (its sorted canonical k-mers, passed by
+pointer; the engine keeps its own hash set of them).
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ def get_lib():
         lib.br_create_solid.restype = ctypes.c_void_p
         lib.br_create_solid.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
                                         ctypes.c_int]
+        lib.br_create_hash.restype = ctypes.c_void_p
+        lib.br_create_hash.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                       ctypes.c_int]
         lib.br_destroy.argtypes = [ctypes.c_void_p]
         lib.br_correct.restype = ctypes.c_long
         lib.br_correct.argtypes = [
@@ -53,17 +57,25 @@ class NativeCorrector:
 
     def __init__(self, valid_kmer, corrections, confirm: int, max_search: int,
                  threads: int = 0):
+        from br_tpu_torch.set.hash import HashSet
         from br_tpu_torch.set.solid import SolidSet
 
-        if not isinstance(valid_kmer, SolidSet):
-            raise TypeError("NativeCorrector needs a br_tpu_torch SolidSet "
-                            "(the port has no HashSet yet, ROADMAP A5)")
         self._lib = get_lib()
         self.k = valid_kmer.k
-        # the engine copies the bitfield (1 GiB at k = 17) from the array
-        bits = np.ascontiguousarray(valid_kmer.bits)
-        self._ctx = self._lib.br_create_solid(bits.ctypes.data, bits.nbytes,
-                                              self.k)
+        # the engine copies the set from the array (the bitfield, 1 GiB at
+        # k = 17; or the sorted k-mers, into its own hash set)
+        if isinstance(valid_kmer, SolidSet):
+            bits = np.ascontiguousarray(valid_kmer.bits)
+            self._ctx = self._lib.br_create_solid(bits.ctypes.data,
+                                                  bits.nbytes, self.k)
+        elif isinstance(valid_kmer, HashSet):
+            kmers = np.ascontiguousarray(valid_kmer.sorted_table(),
+                                         dtype=np.uint64)
+            self._ctx = self._lib.br_create_hash(kmers.ctypes.data,
+                                                 kmers.size, self.k)
+        else:
+            raise TypeError("NativeCorrector needs a br_tpu_torch SolidSet "
+                            "or HashSet")
         kinds = [_KIND[c.lower().replace("_", "-")] for c in corrections]
         self._kinds = (ctypes.c_int * len(kinds))(*kinds)
         self._n = len(kinds)

@@ -5,7 +5,10 @@ Reference: ``run_correction`` (src/lib.rs:72-139) — read ``record_buffer``
 records, correct the batch, then write corrected records back in input
 order.  The corrector is ``Torch3Corrector`` on one device: CUDA unless
 the caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
-versions.
+versions.  It takes every set kind: a solid bitfield (k <= 17) and a
+``HashSet`` (``large-kmer``, k <= 31), where br_tpu routes a ``HashSet``
+or k > 17 to its bucketed ``Tpu2Corrector`` (br_tpu/runtime.py:104-116):
+the port corrects both in the same flat pass engine, with the same bytes.
 """
 
 from __future__ import annotations

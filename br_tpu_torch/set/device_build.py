@@ -92,7 +92,7 @@ def count_kmers(p: Packed, k: int, pbase: int, counts) -> None:
     kernels.check(counts, "counts", torch.int32, p.codes.device)
     if kernels.on_cuda(counts):
         if p.starts.shape[0]:
-            kernels.launch(kernels.width("solid_count", k), p.codes,
+            kernels.launch(kernels.variant("solid_count", k), p.codes,
                            p.codes.shape[0] // 4, p.starts,
                            p.starts.shape[0], p.n_bases, k, pbase,
                            counts.shape[0], counts)

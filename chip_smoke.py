@@ -8,8 +8,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 1. toolchain and device: the card's name and power limit (nvidia-smi),
    torch's CUDA version, nvcc's version, whether triton imports;
 2. build: the kernels from br_tpu_torch/csrc, one nvcc a source (each
-   k-mer kernel's source holds its 32-bit instantiation, k <= 15, and its
-   64-bit one, k = 17, with `ptxas` registers, stack and spills of each),
+   k-mer kernel's source holds its 32-bit instantiation, k <= 15, its
+   64-bit one, k = 17, and its sorted-table one, `_h`, with `ptxas`
+   registers, stack and spills of each),
    and the native host engine (br_tpu_torch/native, g++), all at once
    (started before the corpus is made, joined before first use);
 3. the main path's input: a seeded corpus (br_tpu_torch.corpus: 2000
@@ -62,7 +63,7 @@ In order, each phase ending the run with a nonzero exit code if it fails:
 8. output check: a seeded sample of 100 reads, and every read the device
    did not finish (those the native engine corrected), against the port's
    Python oracle of the default chain (correct/reference.py), the judge
-   independent of both;
+   independent of both, run in forked worker processes, one a host core;
 9. the first slice's path, `-c one`, on the first 500 reads, with its own
    launch counts, fallback limit and oracle check;
 10. k = 17 (k17_path): K8 at k = 17 against its plain build on the first
@@ -78,7 +79,32 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    K2, K5, K6 (both modes, walk_max 248 and 2040) and K7 (ms 7, and 14
    and 15 on the first chunk) on its first chunk and its first retry
    chunk, each held exactly against its plain version (run once) and
-   timed as in 4; its output check, as in 8, at k = 17.
+   timed as in 4 (with --baseline, the first chunk's beside the other
+   tree's 64-bit instantiations); its output check, as in 8, at k = 17;
+11. large k (large_k_path), two sets through `large-kmer -k 21` and the
+   CLI's entry points (a HashSet, its sorted table padded to 2^21
+   entries on the card), each correcting all 2000 reads with the default
+   chain, forward then reversed, with count_s (the set's build),
+   correct_s, reads/s, rest_s, the pass seconds per strategy, the
+   fallback share, wide retries, host_oracle_s and the peak device
+   memory, failing on an `_h` kernel, K3 or K4 not launched, and each
+   with its output check as in 8:
+   a. the trusted set, `-i genome.fa -f fasta`: the corpus's genome
+      written as FASTA, its 21-mers the set; the fallback share is
+      logged, not held to 5 %: br's graph walk toward a k-mer the
+      genome does not hold runs to the end of a branch-free genome, the
+      device caps it and about a fifth of the reads go to the host
+      (PERF.md);
+   b. the counted set, `-i solid21.csv -f csv`: the reads' 21-mers seen
+      more than twice (numpy), written as a k-mer count CSV, failing on
+      more than 5 % fallbacks; the `_h` kernels against their
+   plain versions on its first chunk (K6 at walk_max 248, K7 at ms 7, 14
+   and 15) and its first retry chunk (K6 at walk_max 2040), and K9
+   (hash_probe) on the first chunk's k-mers against its plain version
+   and torch.searchsorted, each timed as in 4; then K9 and
+   dense_probe_h at k = 31 on a sorted table
+   of 2^27 entries (1 GiB, past the L2: the genome's k-mers and random
+   ones, drawn on the card), checked and timed.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
@@ -110,7 +136,13 @@ SAMPLE = 100
 #: reads of the corpus the k = 17 path corrects, and its oracle sample;
 #: reads K8 is checked on at k = 17
 N17, SAMPLE17, K8_READS = 2000, 100, 200
+#: the large-k path (`large-kmer -k 21`) and its oracle sample; the k and the entries of the sorted table of the K9 and
+#: K1 checks past the L2 (2^27 entries, 1 GiB)
+K_LARGE, SAMPLE_LARGE = 21, 100
+K_BIG, BIG_ENTRIES = 31, 1 << 27
 MAX_FALLBACK = 0.05
+#: the script's start (perf_counter), for the phase clock
+T0 = time.perf_counter()
 #: peak device memory bandwidth of an H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
@@ -133,6 +165,8 @@ KERNEL_META = {
                     "br_tpu/set/device_build.py:109"),
     "solid_pack": ("br_tpu_torch/csrc/solid_build.cu",
                    "br_tpu/set/device_build.py:109"),
+    "hash_probe": ("br_tpu_torch/csrc/hash_probe.cu",
+                   "br_tpu/correct/device_codec.py:160"),
 }
 
 
@@ -278,8 +312,8 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
 
 
 def load_baseline(csrc):
-    """K1, K2, K5, K6, K7, K3 and K4 (their 32-bit instantiations, k <= 15)
-    as built from another tree's ``csrc`` (the parent commit's: ``git
+    """K1, K2, K5, K6, K7, K3 and K4 (the bitfield instantiations, 32- and
+    64-bit) as built from another tree's ``csrc`` (the parent commit's: ``git
     archive <commit> br_tpu_torch/csrc``), those whose source or headers
     differ from this tree's, called through this tree's wrappers (their C
     entry points did not change).  Built with this tree's nvcc flags, one
@@ -322,7 +356,8 @@ def load_baseline(csrc):
         log_, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
         lib = ctypes.CDLL(str(out))
-        kernels.bind(lib, [name])
+        kernels.bind(lib, [name] + ([name + "64"] if name in kernels.WIDE
+                                    else []))
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -333,16 +368,36 @@ def load_baseline(csrc):
         src = kernels.KERNELS[name][0]
 
         def call(*args):
-            own, count = kernels._LIBS.get(src), kernels.LAUNCHES[name]
+            own, counts = kernels._LIBS.get(src), dict(kernels.LAUNCHES)
             kernels._LIBS[src] = libs[name]
             try:
                 return wrapper(*args)
             finally:
                 kernels._LIBS[src] = own
-                kernels.LAUNCHES[name] = count
+                kernels.LAUNCHES.update(counts)
         return call
 
     return {name: through(name, fn) for name, fn in wrappers.items()}
+
+
+def search_entries(table, cano):
+    """The distinct entries of a sorted table that the binary searches of
+    ``cano`` (canonical k-mers, int64) read: every candidate of every
+    level and the final one, as device_codec.make_hash_probe steps."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+
+    n, levels = table.shape[0], dc.table_levels(table)
+    flipped, key = table ^ (-(1 << 63)), cano ^ (-(1 << 63))
+    pos = torch.zeros_like(cano)
+    seen = []
+    for level in reversed(range(levels)):
+        cand = (pos + (1 << level)).clamp(max=n - 1)
+        seen.append(torch.unique(cand))
+        pos = torch.where(flipped[cand] <= key, cand, pos)
+    seen.append(torch.unique(pos))
+    return int(torch.unique(torch.cat(seen)).numel())
 
 
 def two_thread_probes(probe, code_at, k, c, ii, corr, lf):
@@ -511,7 +566,8 @@ def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
 
 
 def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
-                  reps=10, plain_reps=2, baseline=None, full=True):
+                  reps=10, plain_reps=2, baseline=None, full=True,
+                  walks=None):
     """Kernels against their plain versions on one chunk: on the first
     chunk K1-K7 at the default walk profile; on a retry chunk
     (``kind="retry"``) K1, K2, K5, K6 in both modes at walk_max 2040, K3
@@ -522,10 +578,13 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     chain-floor run.  ``baseline`` (from load_baseline) gives K1-K7 as
     another tree built them: each is checked and timed beside this tree's.
     At k = 17 the k-mer kernels are their 64-bit instantiations (names
-    ``<name>64``).  Without ``full`` (the k = 17 checks) the chain floors
-    and K3 and K4, which carry codes and do not change with k, are left
-    out.  Returns {name: {ms, plain_ms, bound_ms, max_abs_err, ...}};
-    names with a bracket are a kernel's further configurations."""
+    ``<name>64``), with a sorted HashSet table (int64) their ``_h`` ones.
+    Without ``full`` (the k = 17 and large-k checks) the chain floors and
+    K3 and K4, which carry codes and do not change with k, are left out;
+    ``walks``, when given, names the (walk_max, strategy) pairs of K6 to
+    check on the chunk in place of the default ones.  Returns {name: {ms,
+    plain_ms, bound_ms, max_abs_err, ...}}; names with a bracket are a
+    kernel's further configurations."""
     import torch
 
     from br_tpu_torch import kernels
@@ -544,13 +603,18 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     base = baseline or {}
     res = {}
 
+    tkind = dc.table_kind(table)
+
     def w(name):
-        """The instantiation of a k-mer kernel for this k."""
-        return kernels.width(name, k)
+        """The instantiation of a k-mer kernel for this k and table."""
+        return kernels.variant(name, k, tkind)
 
     def based(name, *args):
-        """The baseline's call of kernel ``name`` on args, or None."""
-        return (lambda: base[name](*args)) if name in base else None
+        """The baseline's call of kernel ``name`` on args, or None (none
+        for a sorted table: the baseline has no ``_h`` instantiations)."""
+        if name not in base or tkind == "hash":
+            return None
+        return lambda: base[name](*args)
 
     def run(name, kern, plain, nbytes, kreps=reps, view=tuple, kb=None):
         sync()
@@ -612,17 +676,20 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     d_args = (table, codes, rs, rl, k, NS)
     d_plain = probe.dense_probe_plain(*d_args)
     pin_ok = d_plain.kmers != 0
-    cano = dc.canonical_any(d_plain.kmers.long()[pin_ok], k) >> 1
-    words = int(torch.unique(cano >> 5).numel())
+    cano = dc.canonical_any(d_plain.kmers.long()[pin_ok], k)
+    if tkind == "hash":   # the table entries the searches read
+        table_bytes = 8 * search_entries(table, cano)
+    else:                 # the bitfield words the probes read
+        table_bytes = 4 * int(torch.unique(cano >> 6).numel())
     n_eff = min(int(d_plain.n_sites[0]), NS)
-    k1_bytes = (CHUNK + 8 * R + 4 * words
+    k1_bytes = (CHUNK + 8 * R + table_bytes
                 + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    k1_bytes += CHUNK * (dc.kmer_dtype(k).itemsize - 4)
+    k1_bytes += CHUNK * (dc.kmer_dtype(k, tkind).itemsize - 4)
     k1_name = w("dense_probe") + {"first": "", "retry": "[retry chunk]",
                                   "long": "[long-walk chunk]"}[kind]
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
             lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20,
-            kb=based("dense_probe", *d_args) if k <= 15 else None)
+            kb=based("dense_probe", *d_args))
 
     def site_run(name, kern, plain, window, kreps=reps, kb=None):
         """A site kernel, compared on the entries it writes; its bytes
@@ -650,7 +717,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
             plain = lambda: floor(*f_args, walk_max=wm)  # noqa: E731
         out = site_run(name, lambda: walk.walk_sites(*w_args), plain,
                        3 * k + c, 3,
-                       kb=based("walk_sites", *w_args) if k <= 15 else None)
+                       kb=based("walk_sites", *w_args))
         used = out.rec_p < BIG
         log(f"  {name}: {int(used.sum())} records, longest emit "
             f"{int(out.rec_c[used].max()) if bool(used.any()) else 0} "
@@ -717,12 +784,12 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         # the k = 17 retry chunk: both walk profiles
         profiles = ((WIDE_WALK_MAX,) if kind == "retry" and full
                     else (WALK_MAX, WIDE_WALK_MAX))
-        for wm in profiles:
-            for st in ("graph", "gap-size"):
-                wo = walk_run(st, wm)
-                if full:
-                    k3(f"chain_splice[{tag},{st} records,walk_max={wm}]",
-                       wo)
+        for wm, st in (walks if walks is not None else
+                       [(wm, st) for wm in profiles
+                        for st in ("graph", "gap-size")]):
+            wo = walk_run(st, wm)
+            if full:
+                k3(f"chain_splice[{tag},{st} records,walk_max={wm}]", wo)
         if kind == "retry" and full:   # the chunk as it came in
             k4("reverse_slots[retry chunk]", codes, rs, rl)
         if not full:
@@ -744,9 +811,11 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         floor("greedy_sites", "greedy", table, codes, d, rs, rl, k, c, ms)
     log_floor("greedy_sites")
     if not full:
-        for wm in (WIDE_WALK_MAX,):   # the wide profile on this chunk too
-            for st in ("graph", "gap-size"):
-                walk_run(st, wm)
+        # the wide profile on this chunk too
+        for wm, st in (walks if walks is not None else
+                       [(WIDE_WALK_MAX, "graph"),
+                        (WIDE_WALK_MAX, "gap-size")]):
+            walk_run(st, wm)
         for ms_ in (14, 15):   # 32 and 33 DP columns at k = 17
             site_run(f"{w('greedy_sites')}[ms={ms_}]",
                      lambda: greedy.greedy_sites(*s_args, ms_, c),
@@ -890,11 +959,28 @@ def drive(args, make, sync):
             dict(kernels.LAUNCHES))
 
 
+#: what the oracle check's worker processes read (set before they fork)
+_ORACLE: dict = {}
+
+
+def _oracle_read(i):
+    """The port's oracle on read i of the oracle check (a worker)."""
+    from br_tpu_torch.correct.reference import correct_read
+
+    return correct_read(_ORACLE["seqs"][i], _ORACLE["methods"],
+                        two_side=False)
+
+
 def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
     """A seeded sample of ``sample`` (SAMPLE) reads plus every
-    host-corrected read against the port's oracle of ``chain`` at k."""
+    host-corrected read against the port's oracle of ``chain`` at k, the
+    reads spread over one forked process a host core (the children run
+    the Python oracle only, and read the set the parent holds)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from br_tpu_torch.correct.engine3 import host_set
-    from br_tpu_torch.correct.reference import build_methods, correct_read
+    from br_tpu_torch.correct.reference import build_methods
     from br_tpu_torch.io.fasta import read_records
 
     got = [s for _d, s, _q in read_records(out)]
@@ -906,9 +992,16 @@ def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
     solid = host_set(solid)
     check(solid.k == k, f"{label}: the set's k is {solid.k}, not {k}")
     methods = build_methods(chain, solid, C, MS)
+    solid.get(0)   # a HashSet builds its lookup set once, before the fork
+    _ORACLE.update(seqs=seqs, methods=methods)
+    idx = sorted(picked)
     t0 = time.perf_counter()
-    bad = [i for i in sorted(picked)
-           if got[i] != correct_read(seqs[i], methods, two_side=False)]
+    with ProcessPoolExecutor(
+            max_workers=os.cpu_count() or 1,
+            mp_context=multiprocessing.get_context("fork")) as pool:
+        want = list(pool.map(_oracle_read, idx, chunksize=1))
+    _ORACLE.clear()
+    bad = [i for i, w in zip(idx, want) if got[i] != w]
     check(not bad, f"{label}: {len(bad)} sampled reads differ from the "
                    f"oracle (first {bad[:5]})")
     changed = sum(got[i] != seqs[i] for i in picked)
@@ -947,7 +1040,7 @@ def solid_checks(seqs, k, device, sync, reps=10):
     sync()
     check(torch.equal(counts, want), f"K8a at k={k}: counts differ")
     res = {}
-    name = kernels.width("solid_count", k)
+    name = kernels.variant("solid_count", k)
     t0 = time.perf_counter()
     db.count_kmers_plain(p, k, 0, want)
     sync()
@@ -1011,10 +1104,12 @@ def solid_checks(seqs, k, device, sync, reps=10):
 
 
 def path_report(label, args, solid, corrector, n, count_s, correct_s,
-                launches, inst, n_bases, card, need):
+                launches, inst, n_bases, card, need,
+                max_fallback=MAX_FALLBACK):
     """Log a main path's numbers; fail on a kernel of ``need`` not
     launched, on a record count other than the input's or on more than
-    MAX_FALLBACK of the reads on the host."""
+    ``max_fallback`` of the reads on the host (None: the share is logged,
+    not held to a limit)."""
     kept, oracle_s = inst["kept"], inst["oracle_s"]
     st = corrector.last_stats
     reasons = cap_reasons(kept)
@@ -1023,8 +1118,9 @@ def path_report(label, args, solid, corrector, n, count_s, correct_s,
     engine = corrector._engine
     log(f"{label}: " + json.dumps({
         "chain": args.corrections, "k": solid.k, "card": card, "reads": n,
-        "bases": n_bases, "solid_frac": solid.count_ones() / float(
-            1 << (2 * solid.k - 1)),
+        "bases": n_bases, "solid_frac": (
+            len(solid) if hasattr(solid, "device_table") else
+            solid.count_ones()) / float(1 << (2 * solid.k - 1)),
         "count_s": count_s, "correct_s": correct_s,
         "reads_per_s": n / correct_s, "bases_per_s": n_bases / correct_s,
         "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
@@ -1038,9 +1134,13 @@ def path_report(label, args, solid, corrector, n, count_s, correct_s,
         check(launches[name] > 0,
               f"{label}: kernel {name} was not launched")
     frac = st["fallback"] / max(1, st["total"])
-    check(frac <= MAX_FALLBACK,
-          f"{label}: {st['fallback']} of {st['total']} reads went to the "
-          f"host (> {MAX_FALLBACK:.0%})")
+    log(f"{label}: fallback share {frac:.4f} ({st['fallback']} of "
+        f"{st['total']} reads on the host), correct_s {correct_s:.3f}, "
+        f"host_oracle_s {sum(oracle_s):.3f}")
+    if max_fallback is not None:
+        check(frac <= max_fallback,
+              f"{label}: {st['fallback']} of {st['total']} reads went to "
+              f"the host (> {max_fallback:.0%})")
     return device_s
 
 
@@ -1051,6 +1151,261 @@ NEED13 = ("dense_probe", "one_sites", "two_sites", "walk_sites",
 NEED17 = ("dense_probe64", "one_sites64", "two_sites64", "walk_sites64",
           "greedy_sites64", "chain_splice", "reverse_slots", "solid_count64",
           "solid_pack")
+
+
+NEED_LARGE = ("dense_probe_h", "one_sites_h", "two_sites_h", "walk_sites_h",
+              "greedy_sites_h", "chain_splice", "reverse_slots")
+
+
+def corpus_genome():
+    """The corpus's genome (ASCII bytes): the first ``rng.integers(0, 4,
+    GENOME)`` draw of PCG64(SEED), as br_tpu_torch.corpus.write_corpus
+    draws it before its reads."""
+    from br_tpu_torch.corpus import BASES
+
+    rng = np.random.Generator(np.random.PCG64(SEED))
+    return BASES[rng.integers(0, 4, GENOME)].tobytes()
+
+
+def write_solid_csv(seqs, k, a, path):
+    """The solid k-mers of ``seqs`` at k as a k-mer count CSV, the input
+    of br's `large-kmer -f csv` (a header row, then `kmer,count`, one row
+    a canonical k-mer seen more than ``a`` times), as a k-mer counter's
+    dump gives it: counted with numpy (np.unique over the reads'
+    canonical k-mers).  Returns the number of rows."""
+    from br_tpu_torch import codec
+
+    parts = [codec.canonical_np(codec.rolling_kmers_np(
+        codec.encode_ascii_np(np.frombuffer(s, np.uint8)), k), k)
+        for s in seqs if len(s) >= k]
+    kmers, counts = np.unique(np.concatenate(parts), return_counts=True)
+    del parts
+    keep = counts > a
+    kmers, counts = kmers[keep], counts[keep]
+    shifts = np.arange(2 * (k - 1), -1, -2, dtype=np.uint64)
+    letters = np.frombuffer(b"ACTG", np.uint8)[
+        (kmers[:, None] >> shifts[None, :]) & np.uint64(3)]
+    with open(path, "w") as fh:
+        fh.write("kmer,count\n")
+        fh.writelines(f"{s},{c}\n" for s, c in zip(
+            letters.view(f"S{k}").ravel().astype(str), counts.tolist()))
+    return int(kmers.size)
+
+
+def hash_probe_check(name, table, kmers, k, sync, reps=10):
+    """K9 on ``kmers`` against its plain version (exactly), timed as the
+    kernel checks time a kernel, beside torch.searchsorted on the same
+    canonical k-mers and the table with its sentinel mapped to INT64_MAX
+    (torch compares int64 as signed); its bound: each k-mer read and each
+    result written once, and the distinct table entries the searches
+    read.  Returns {name: {...}}."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct.hash_probe import hash_probe
+
+    sync()
+    t0 = time.perf_counter()
+    want = dc.make_hash_probe(table, k)(kmers)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = hash_probe(table, kmers, k)
+    sync()
+    err = max_abs_err((got,), (want,))
+    check(err == 0, f"{name}: K9 and its plain version differ")
+    cano = dc.canonical_any(kmers, k)
+    mapped = torch.where(table < 0, torch.iinfo(torch.int64).max, table)
+    pos = torch.searchsorted(mapped, cano).clamp(max=table.numel() - 1)
+    check(torch.equal(got, mapped[pos] == cano),
+          f"{name}: K9 and torch.searchsorted differ")
+    entries = search_entries(table, cano)
+    nbytes = 9 * kmers.numel() + 8 * entries
+    r = {"ms": cuda_ms(lambda: hash_probe(table, kmers, k), reps, sync,
+                       queued=True),
+         "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "max_abs_err": err,
+         "library_ms": cuda_ms(lambda: torch.searchsorted(mapped, cano),
+                               reps, sync, queued=True)}
+    log(f"kernel {name}: " + json.dumps({
+        "kernel": name, "k": k, "probes": kmers.numel(),
+        "table_entries": table.numel(), "levels": dc.table_levels(table),
+        "dependent_loads_per_probe": dc.table_levels(table) + 1,
+        "entries_read": entries, "hits": int(got.sum()),
+        "kernel_ms": r["ms"], "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
+        "ms_over_bound": r["ms"] / r["bound_ms"]}))
+    return {name: r}
+
+
+def big_table_checks(chunk, device, sync):
+    """K9 and K1 (dense_probe_h) at k = K_BIG on a sorted table of
+    BIG_ENTRIES entries (1 GiB, far past the 50 MB L2, the size of a 100
+    Mb genome's set): the canonical k-mers of the corpus's genome and
+    random canonical k-mers, padded with the sentinel 1 << 63, drawn on
+    the card; K9 on the k-mers of ``chunk``'s positions, K1 on the chunk
+    (its reads' k-mers hit the genome's, their errors miss); each held
+    exactly against its plain version and timed.  Returns {name:
+    {...}}."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct import probe
+    from br_tpu_torch.correct.layout import site_capacity
+
+    k = K_BIG
+    packed, rstart, rlen = chunk
+    CHUNK = packed.shape[0] * 4
+    codes = dc.unpack_codes(torch.from_numpy(packed).to(device), CHUNK)
+    rs = torch.from_numpy(rstart).to(device)
+    rl = torch.from_numpy(rlen).to(device)
+    kmers = dc.rolling_kmers(codes, k)
+    genome = torch.from_numpy(
+        np.frombuffer(corpus_genome(), np.uint8) >> 1 & 3).to(device)
+    gk = dc.canonical_any(dc.rolling_kmers(genome, k)[k - 1:], k)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    rnd = torch.randint(0, 1 << (2 * k), (BIG_ENTRIES - BIG_ENTRIES // 8,),
+                        device=device, generator=g, dtype=torch.int64)
+    vals = torch.unique(torch.cat([dc.canonical_any(rnd, k), gk]))
+    del rnd, gk, genome
+    check(vals.numel() <= BIG_ENTRIES, "the 1 GiB table overflowed")
+    table = torch.cat([vals, torch.full((BIG_ENTRIES - vals.numel(),),
+                                        -(1 << 63), dtype=torch.int64,
+                                        device=device)])
+    del vals
+    sync()
+    res = hash_probe_check("hash_probe", table, kmers, k, sync)
+    NS = site_capacity(CHUNK)
+    d_args = (table, codes, rs, rl, k, NS)
+    sync()
+    t0 = time.perf_counter()
+    dp = probe.dense_probe_plain(*d_args)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(probe.dense_probe(*d_args), dp)
+    check(err == 0, "dense_probe_h at k=31 with the 1 GiB table: kernel "
+                    "and plain version differ")
+    pin_ok = dp.kmers != 0
+    entries = search_entries(table, dc.canonical_any(dp.kmers[pin_ok], k))
+    nbytes = (CHUNK + 8 * rs.numel() + 8 * entries + CHUNK * (8 + 3)
+              + 4 * NS + 4 + rs.numel())
+    name = f"dense_probe_h[k={k},1 GiB table]"
+    res[name] = {"ms": cuda_ms(lambda: probe.dense_probe(*d_args), 10, sync,
+                               queued=True),
+                 "plain_ms": plain_ms,
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "max_abs_err": err}
+    log(f"kernel {name}: " + json.dumps({
+        "kernel": name, "table_entries": table.numel(),
+        "entries_read": entries, "sites": int(dp.n_sites[0]),
+        "kernel_ms": res[name]["ms"], "plain_ms": plain_ms,
+        "bound_ms": res[name]["bound_ms"],
+        "ms_over_bound": res[name]["ms"] / res[name]["bound_ms"]}))
+    return res
+
+
+def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
+                card, max_fallback):
+    """One `large-kmer -i src -f fmt -k K_LARGE` run through the CLI's
+    entry points over the whole corpus: its numbers, the set's size and
+    peak device memory, failing on a kernel of NEED_LARGE not launched,
+    on more than ``max_fallback`` of the reads on the host (None: not
+    held to a limit) or on the output check (the SAMPLE_LARGE sample and
+    every host read).  Returns (solid, corrector, instrumentation, launch
+    counts)."""
+    import torch
+
+    from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
+    from br_tpu_torch.correct import device_codec as dc
+
+    k = K_LARGE
+    out = os.path.join(workdir, f"out_large_{fmt}.fa")
+    args = cli.build_parser().parse_args(
+        ["-i", fa, "-o", out, "large-kmer", "-i", src, "-f", fmt, "-k",
+         str(k)])
+    args.corrections = args.corrections or list(DEFAULT_CORRECTIONS)
+    inst = {}
+
+    def make(solid):
+        cor = runtime.make_corrector(solid, args.corrections, args.confirm,
+                                     args.max_search, device=device)
+        inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+        return cor
+
+    torch.cuda.reset_peak_memory_stats()
+    solid, corrector, n, count_s, correct_s, launches = drive(args, make,
+                                                              sync)
+    peak = torch.cuda.max_memory_allocated()
+    check(n == N_READS, f"{label} wrote {n} records, expected {N_READS}")
+    path_report(label, args, solid, corrector, n, count_s, correct_s,
+                launches, inst, n_bases, card, NEED_LARGE,
+                max_fallback=max_fallback)
+    table = corrector.table
+    log(f"{label} set and device memory: " + json.dumps({
+        "input": f"-i {os.path.basename(src)} -f {fmt}",
+        "kmers": len(solid), "table_entries": table.numel(),
+        "table_bytes": table.numel() * 8, "levels": dc.table_levels(table),
+        "set_build_s": count_s, "max_memory_allocated": peak}))
+    oracle_check(f"{label} default chain", out, seqs, args.corrections,
+                 solid, corrector.last_host, k=k, sample=SAMPLE_LARGE)
+    return solid, corrector, inst, launches
+
+
+def large_k_path(workdir, fa, seqs, n_bases, device, sync, card):
+    """The large-k phase at k = K_LARGE, two sets through `large-kmer`
+    (large_k_run): the trusted set, the corpus's genome written as FASTA
+    (`-f fasta`; its fallback share logged, not held to MAX_FALLBACK: a
+    fifth of the reads go to the host, PERF.md), then the counted set,
+    the reads' k-mers seen more than twice counted with numpy and written
+    as a k-mer count CSV (`-f csv`, the input a k-mer counter gives br;
+    held to MAX_FALLBACK); on the counted set's path the _h kernels
+    against their plain versions on its first chunk (K6 at walk_max 248,
+    K7 at ms 7, 14 and 15) and its first retry chunk (K6 at walk_max
+    2040) and K9 on the first chunk's k-mers against the path's table;
+    then K9 and K1 at k = 31 past the L2 (big_table_checks).  Returns
+    (checks, launch counts of the counted set's path)."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct.layout import WIDE_WALK_MAX
+
+    k = K_LARGE
+    genome_fa = os.path.join(workdir, "genome.fa")
+    with open(genome_fa, "wb") as fh:
+        fh.write(b">genome\n" + corpus_genome() + b"\n")
+    solid, corrector, _inst, _launches = large_k_run(
+        f"k={k} large-kmer -f fasta path (the trusted set: the genome's "
+        f"{k}-mers)", workdir, fa, genome_fa, "fasta", seqs, n_bases,
+        device, sync, card, max_fallback=None)
+    del solid, corrector
+    torch.cuda.empty_cache()
+
+    csv = os.path.join(workdir, f"solid{k}.csv")
+    t0 = time.perf_counter()
+    rows = write_solid_csv(seqs, k, 2, csv)
+    log(f"k={k} solid k-mers (count > 2) of the corpus: {rows} rows of "
+        f"{csv} in {time.perf_counter() - t0:.1f} s (numpy)")
+    solid, corrector, inst, launches = large_k_run(
+        f"k={k} large-kmer -f csv path (the counted set: the reads' "
+        f"{k}-mers seen more than twice)", workdir, fa, csv, "csv", seqs,
+        n_bases, device, sync, card, max_fallback=MAX_FALLBACK)
+    table = corrector.table
+    idxs, starts = corrector._plan(seqs, set(), set())[0]
+    first = corrector._chunk_arrays(seqs, idxs, starts)
+    checks = kernel_checks(table, first, k, C, MS, device, sync,
+                           plain_reps=0, full=False, walks=[])
+    check(bool(inst["retry"]), f"the k={k} path retried no chunk")
+    checks.update(kernel_checks(
+        table, inst["retry"][0], k, C, MS, device, sync, kind="retry",
+        plain_reps=0, full=False,
+        walks=[(WIDE_WALK_MAX, "graph"), (WIDE_WALK_MAX, "gap-size")]))
+    codes = dc.unpack_codes(torch.from_numpy(first[0]).to(device),
+                            first[0].shape[0] * 4)
+    checks.update(hash_probe_check(f"hash_probe[k={k},path table]", table,
+                                   dc.rolling_kmers(codes, k), k, sync))
+    del solid, corrector, table
+    torch.cuda.empty_cache()
+    checks.update(big_table_checks(first, device, sync))
+    return checks, launches
 
 
 def main_path(workdir, device, sync, card, build, base_dir=None):
@@ -1132,6 +1487,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     oracle_check("default chain", out, seqs, args.corrections, solid,
                  corrector.last_host)
 
+    log(f"phase clock: -c one at {time.perf_counter() - T0:.0f} s")
     # the first slice's path: -c one on the first N_ONE reads
     fa1 = os.path.join(workdir, "reads_one.fa")
     out1 = os.path.join(workdir, "out_one.fa")
@@ -1157,16 +1513,28 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     del planner, dsolid, solid, corrector, solid1, one
     torch.cuda.empty_cache()
 
+    log(f"phase clock: k = 17 at {time.perf_counter() - T0:.0f} s")
     checks17, launches17 = k17_path(workdir, fa, seqs, n_bases, device, sync,
-                                    card)
+                                    card, baseline)
     checks.update(checks17)
+    del checks17
+    torch.cuda.empty_cache()
+    log(f"phase clock: large k at {time.perf_counter() - T0:.0f} s")
+    checks_l, launches_l = large_k_path(workdir, fa, seqs, n_bases, device,
+                                        sync, card)
+    log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
+    checks.update(checks_l)
     entries = []
     for name, (source, replaces) in KERNEL_META.items():
         # a kernel's k = 17 entry: its 64-bit instantiation, or (K8b,
-        # which holds no k-mer) the same kernel's k = 17 launches
-        for nm, cnt, key in ((name, launches, name),
+        # which holds no k-mer) the same kernel's k = 17 launches; its
+        # large-k entry: its sorted-table instantiation, and K9's, with
+        # the large-k path's launches
+        for nm, cnt, key in ((name, launches_l if name == "hash_probe"
+                              else launches, name),
                              (name + "64", launches17, name + "64"),
-                             (name + "[k=17]", launches17, name)):
+                             (name + "[k=17]", launches17, name),
+                             (name + "_h", launches_l, name + "_h")):
             if nm not in checks:
                 continue
             r = checks[nm]
@@ -1179,15 +1547,17 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     return entries
 
 
-def k17_path(workdir, fa, seqs, n_bases, device, sync, card):
+def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
+             baseline=None):
     """The k = 17 phases: K8 against its plain build on the first K8_READS
     reads (the set-bit words compared on the card) and K8a/K8b against
     their plain versions on the whole corpus; the k = 17 default chain
     through the CLI's entry points over the first N17 reads (the set
     built by K8 over the whole corpus), with its numbers and peak device
     memory; the 64-bit kernels against their plain versions on its first
-    chunk and its first retry chunk; its output check.  Returns (checks,
-    launch counts of the path)."""
+    chunk (with ``baseline``, beside the other tree's 64-bit
+    instantiations); its output check.  Returns (checks, launch counts of
+    the path)."""
     import torch
 
     from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
@@ -1242,7 +1612,8 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card):
     idxs, starts = corrector._plan(seqs[:N17], set(), set())[0]
     first = corrector._chunk_arrays(seqs[:N17], idxs, starts)
     checks.update(kernel_checks(corrector.table, first, k, C, MS, device,
-                                sync, plain_reps=0, full=False))
+                                sync, plain_reps=0, full=False,
+                                baseline=baseline))
     check(bool(inst["retry"]), "the k=17 path retried no chunk")
     checks.update(kernel_checks(corrector.table, inst["retry"][0], k, C, MS,
                                 device, sync, kind="retry", plain_reps=0,
@@ -1255,10 +1626,11 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CSRC_DIR",
-                    help="also check and time K1-K7 at k = 13 as built "
-                         "from this directory, those whose sources differ "
-                         "from this tree's (the parent commit's csrc: git "
-                         "archive <commit> br_tpu_torch/csrc)")
+                    help="also check and time K1-K7 at k = 13 (and the "
+                         "64-bit ones at k = 17) as built from this "
+                         "directory, those whose sources differ from this "
+                         "tree's (the parent commit's csrc: git archive "
+                         "<commit> br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
         import torch

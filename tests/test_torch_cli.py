@@ -1,9 +1,10 @@
-"""The port's CLI refuses a k its device path cannot take (above 17)
-with one error line and a non-zero exit code: for ``fasta`` before
-anything is counted, for ``solid`` and ``count`` as soon as the set is
-loaded; an even k still rounds down to the odd k below it.  ``fasta -a``
-builds the solid set on the corrector's device (the plain version of K8
-on the CPU), k = 17 included, and no host Counter."""
+"""The port's CLI refuses a solid bitfield above k = 17 (``large-kmer``
+takes larger k) with one error line and a non-zero exit code: for
+``fasta`` before anything is counted, for ``solid`` and ``count`` as
+soon as the set is loaded; an even k still rounds down to the odd k
+below it.  ``fasta -a`` builds the solid set on the corrector's device
+(the plain version of K8 on the CPU), k = 17 included, and no host
+Counter.  ``large-kmer`` runs (tests/test_torch_hash.py)."""
 
 import numpy as np
 import pytest
@@ -53,7 +54,7 @@ def test_fasta_k_above_17_refused_before_counting(monkeypatch, tmp_path,
     err = capsys.readouterr().err
     assert rc != 0
     assert err.count("\n") == 1 and err.startswith("error: k=")
-    assert "Traceback" not in err and "ROADMAP A5" in err
+    assert "Traceback" not in err and "large-kmer" in err
     assert not out.exists()
 
 

@@ -27,6 +27,7 @@ from br_tpu_torch.correct.layout import (
     BIG, CAP_ATTEMPT, CAP_OVERFLOW, WIDE_WALK_MAX, site_capacity)
 from br_tpu_torch.correct.reference import build_methods, correct_read
 from br_tpu_torch.correct.sites import Sites
+from br_tpu_torch.set.hash import HashSet
 from br_tpu_torch.set.solid import SolidSet
 
 pytestmark = pytest.mark.cuda
@@ -583,7 +584,7 @@ def test_solid_build_matches_plain(dev, k, a):
     batches = [db.pack_reads(reads[:50], k, dev),
                db.pack_reads(reads[50:], k, dev)]
     want = db.solid_words_plain(batches, k, a)
-    name = kernels.width("solid_count", k)
+    name = kernels.variant("solid_count", k)
     half = 1 << (2 * k - 1)
     for cap in (db.DEFAULT_MAX_COUNT_BYTES, 1 << (2 * k - 4)):
         before = dict(kernels.LAUNCHES)
@@ -654,3 +655,154 @@ def test_k17_corrector_on_card_matches_oracle(dev):
     methods = build_methods(FULL, solid.host(), tc.C, tc.MS)
     assert got == [correct_read(r, methods, False) for r in reads]
     assert sum(a != b for a, b in zip(got, reads)) >= 10
+
+
+# ---------------------------------------------------------------------------
+# The sorted-table instantiations (<name>_h) and K9, with a HashSet.
+# ---------------------------------------------------------------------------
+
+HASH_KS = [13, 21, 31]
+H_SITES = ["one", "two", "graph", "gap-size", "graph-wide", "gap-size-wide",
+           "greedy", "greedy-ms15"]
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_case(k):
+    """kmer_cases at k and their genome's padded sorted table (numpy)."""
+    cases = tc.kmer_cases(k, 1700 + k)
+    table = HashSet.from_sequences(cases["mixed"][0], k).device_table()
+    return cases, table
+
+
+@pytest.mark.parametrize("name", ["mixed", "long_walk"])
+@pytest.mark.parametrize("strategy", H_SITES)
+@pytest.mark.parametrize("k", HASH_KS)
+def test_hash_kernels_match_plain(dev, k, strategy, name):
+    """The _h kernels (K1, K2, K5, K6 in both modes at walk_max 248 and
+    2040, K7 at ms 7 and 15: 40 and 47 DP columns at k = 31) against
+    their plain versions through the sorted table, and K3 on their
+    records."""
+    cases, table_np = _hash_case(k)
+    table = torch.from_numpy(table_np.view(np.int64)).to(dev)
+    _pieces, codes, rstart, rlen = cases[name]
+    codes = torch.from_numpy(codes).to(dev)
+    rs = torch.from_numpy(rstart).to(dev)
+    rl = torch.from_numpy(rlen).to(dev)
+    NS = site_capacity(tc.CHUNK)
+    before = dict(kernels.LAUNCHES)
+    d = probe.dense_probe(table, codes, rs, rl, k, NS)
+    dp = probe.dense_probe_plain(table, codes, rs, rl, k, NS)
+    _same(d, dp)
+    assert dp.kmers.dtype == torch.int64 and int(dp.n_sites[0]) > 0
+    args = (table, codes, dp.kmers, dp.s_pos, dp.n_sites, rs, rl, k)
+    if strategy == "one":
+        kname, fns, extra = "one_sites_h", (sites.one_sites,
+                                            sites.one_sites_plain), (tc.C,)
+    elif strategy == "two":
+        kname, fns, extra = "two_sites_h", (two.two_sites,
+                                            two.two_sites_plain), (tc.C,)
+    elif strategy.startswith("greedy"):
+        ms = int(strategy[9:]) if "-ms" in strategy else tc.MS
+        kname, fns, extra = "greedy_sites_h", (
+            greedy.greedy_sites, greedy.greedy_sites_plain), (ms, tc.C)
+    else:
+        wm = WIDE_WALK_MAX if strategy.endswith("-wide") else 248
+        kname, fns = "walk_sites_h", (walk.walk_sites,
+                                      walk.walk_sites_plain)
+        args = (table, codes, dp.kmers, dp.V, *args[3:])
+        extra = (tc.C, strategy.replace("-wide", ""), wm)
+    s, sp = (f(*args, *extra) for f in fns)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kname] == before[kname] + 1
+    assert kernels.LAUNCHES["dense_probe_h"] == before["dense_probe_h"] + 1
+    _same(sites.defined(s), sites.defined(sp))
+    # greedy at ms 7 applies no repair to these reads at k = 21 (nor does
+    # the oracle's greedy): its records are held at ms 15
+    assert (name != "mixed" or strategy == "greedy"
+            or bool((sp.rec_p < BIG).any()))
+    x_args = (codes, rs, rl, dp.s_pos, dp.n_sites, sp, dp.cap_read)
+    xp = splice.chain_splice_plain(*x_args)
+    _same(splice.chain_splice(*x_args), xp)
+    _same(splice.chain_splice(*x_args[:5], s, dp.cap_read), xp)
+
+
+@pytest.mark.parametrize("any_c", [0, 12, 61])
+@pytest.mark.parametrize("strategy", ["one", "two"])
+def test_hash_one_two_any_confirm(dev, strategy, any_c):
+    """K2 and K5 at k = 31 with confirm counts whose rounds pass the
+    first code window (two words wide for the sorted table)."""
+    cases, table_np = _hash_case(31)
+    table = torch.from_numpy(table_np.view(np.int64)).to(dev)
+    _p, codes, rstart, rlen = cases["mixed"]
+    codes = torch.from_numpy(codes).to(dev)
+    rs = torch.from_numpy(rstart).to(dev)
+    rl = torch.from_numpy(rlen).to(dev)
+    dp = probe.dense_probe_plain(table, codes, rs, rl, 31,
+                                 site_capacity(tc.CHUNK))
+    args = (table, codes, dp.kmers, dp.s_pos, dp.n_sites, rs, rl, 31, any_c)
+    fns = ((sites.one_sites, sites.one_sites_plain) if strategy == "one"
+           else (two.two_sites, two.two_sites_plain))
+    _same(sites.defined(fns[0](*args)), sites.defined(fns[1](*args)))
+
+
+def _random_sorted_table(dev, k, n, seed):
+    """(table, its k-mers): a sorted table of at most n - n // 8 distinct
+    random canonical k-mers and at least n // 8 sentinels (1 << min(2k+1, 63)),
+    int64 bits, drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hi = 1 << (2 * k)
+    vals = torch.randint(0, hi, (n - n // 8,), device=dev, generator=g,
+                         dtype=torch.int64)
+    vals = torch.unique(dc.canonical_any(vals, k))
+    sentinel = (1 << min(2 * k + 1, 63))
+    pad = torch.full((n - vals.numel(),), sentinel - (1 << 64 if sentinel
+                                                      >= 1 << 63 else 0),
+                     dtype=torch.int64, device=dev)
+    return torch.cat([vals, pad]), vals
+
+
+@pytest.mark.parametrize("k", [19, 21, 31])
+def test_hash_probe_matches_plain_and_searchsorted(dev, k):
+    """K9 against its plain version and torch.searchsorted on a 2^20
+    table: k-mers of the table (canonical and not), below its first and
+    above its last entry, random ones; at k = 31 with bits 60-61 set,
+    against the sentinel 1 << 63."""
+    from br_tpu_torch.correct.hash_probe import hash_probe
+
+    table, vals = _random_sorted_table(dev, k, 1 << 20, k)
+    real = vals[: 1 << 16]
+    rc = dc.revcomp64(real, k)
+    g = torch.Generator(device=dev).manual_seed(100 + k)
+    rnd = torch.randint(0, 1 << (2 * k), (1 << 16,), device=dev,
+                        generator=g, dtype=torch.int64)
+    edge = torch.tensor([0, int(real.min()), int(real.max()),
+                         (1 << (2 * k)) - 1, 3 << (2 * k - 2)],
+                        device=dev, dtype=torch.int64)
+    kmers = torch.cat([real, rc, rnd, edge])
+    before = kernels.LAUNCHES["hash_probe"]
+    got = hash_probe(table, kmers, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hash_probe"] == before + 1
+    want = dc.make_hash_probe(table, k)(kmers)
+    assert torch.equal(got, want)
+    # the library: searchsorted on the table with the sentinel mapped to
+    # INT64_MAX (torch compares int64 as signed)
+    mapped = torch.where(table < 0, torch.iinfo(torch.int64).max, table)
+    cano = dc.canonical_any(kmers, k)
+    pos = torch.searchsorted(mapped, cano).clamp(max=table.numel() - 1)
+    assert torch.equal(got, mapped[pos] == cano)
+    assert bool(got[: real.numel()].all())
+
+
+@pytest.mark.parametrize("two_side", [False, True])
+def test_hash_corrector_k21_on_card_matches_oracle(dev, two_side):
+    """The default chain at k = 21 on the card with a HashSet, the host
+    reads through the native engine, equals the oracle."""
+    g, reads = tc.hash_cases(21)
+    hset = HashSet.from_sequences([g], 21)
+    tcor = Torch3Corrector(hset, FULL, tc.C, tc.MS, chunk=tc.CHUNK,
+                           nreads=tc.R)
+    got = tcor.correct_batch(reads, two_side)
+    methods = build_methods(FULL, hset, tc.C, tc.MS)
+    assert got == [correct_read(r, methods, two_side) for r in reads]
+    assert tcor.last_stats["fallback"] >= 2

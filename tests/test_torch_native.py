@@ -108,6 +108,28 @@ def test_native_impure_reads():
         _agree(jset, FULL, tc.C, tc.MS, reads, two_side)
 
 
+@pytest.mark.parametrize("k", [21, 31])
+def test_native_hash_set_matches_br_tpu(k):
+    """A HashSet goes into the engine by br_create_hash: the port's
+    engine on the port's HashSet, and br_tpu's on its own, give br_tpu's
+    oracle's bytes at large k."""
+    from br_tpu.set.hash import HashSet as JHashSet
+    from br_tpu_torch.set.hash import HashSet
+
+    g, reads = tc.hash_cases(k)
+    reads = reads[:-1]   # the long read: covered at k = 21 elsewhere
+    jset = JHashSet.from_sequences([g], k)
+    mine = NativeCorrector(HashSet.from_sequences([g], k), FULL, tc.C,
+                           tc.MS, threads=2)
+    theirs = JNativeCorrector(jset, FULL, tc.C, tc.MS, threads=2)
+    methods = j_build_methods(FULL, jset, tc.C, tc.MS)
+    for two_side in (False, True):
+        want = [j_correct_read(r, methods, two_side) for r in reads]
+        assert mine.correct_batch(reads, two_side) == want
+        assert theirs.correct_batch(reads, two_side) == want
+    assert sum(a != b for a, b in zip(want, reads)) >= 8
+
+
 def test_native_takes_only_the_ports_solid_set():
     jset = JSolidSet.from_sequences([b"ACGTTGCAAGGCTTAC" * 4], 13)
     with pytest.raises(TypeError, match="SolidSet"):

@@ -36,9 +36,15 @@ attempts consume a negative count (name ``greedy_rewind``).
 ``golden/torch_<strategy>_pass_k17.npz`` holds br_tpu's passes at k = 17
 (u64 registers) on ``k17_cases``, the walkers' long-walk family also at
 walk_max 2040 and greedy also at ms = 15 (name ``<strategy>_k17``).
+``golden/torch_hash_k<k>.npz`` (k = 19, 20, 21, 25, 31) holds, for the
+reads of ``hash_cases(k)`` and their genome's ``HashSet``, br_tpu's
+oracle output with the default chain, both two_side values, and at
+k = 21 br_tpu's ``Tpu2Corrector`` output too (name ``hash_k<k>``; the
+oracle takes seconds, the large-k engine tens of minutes and tens of GB
+of host memory).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py \
-        [strategy ... two_stress greedy_rewind one_k17 ...]
+        [strategy ... two_stress greedy_rewind one_k17 ... hash_k21 ...]
 """
 
 from __future__ import annotations
@@ -282,17 +288,18 @@ def save_golden(outs, path=GOLDEN):
 def run_port_pass(strategy, case, walk_max=None, device="cpu", ms=MS, k=K,
                   table=None):
     """The port's pass of ``strategy`` on one case: numpy (out, out_len,
-    cap, aux); ``table``, when given, is the case genome's bitfield."""
+    cap, aux); ``table``, when given, is the case genome's bitfield or
+    sorted HashSet table."""
     import torch
 
     from br_tpu_torch.correct.engine3 import make_pass3_fn
     from br_tpu_torch.set.solid import SolidSet
 
     g, codes, rstart, rlen = case
-    kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, **kw)
     if table is None:
         table = SolidSet.from_sequences(pieces_of(g), k).device_words(device)
+    kw = {} if walk_max is None else {"walk_max": walk_max}
+    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, **kw)
     out = fn(table, *(torch.from_numpy(x).to(device) for x in (codes, rstart,
                                                                rlen)))
     return tuple(t.cpu().numpy() for t in out)
@@ -1053,8 +1060,13 @@ def k17_cases():
     apart, with dense errors, and with nested substitutions 8 apart past
     SLOTS; ``long_walk``: chimeras, a 400-base deletion and a 400-base
     random stretch, in slots with the wide profile's headroom."""
-    k = K17
-    rng = np.random.default_rng(1717)
+    return kmer_cases(K17, 1717)
+
+
+def kmer_cases(k: int, seed: int):
+    """``k17_cases``'s families at k, drawn from ``seed`` (the card tests
+    of the sorted-table kernels take them at k = 13, 21 and 31)."""
+    rng = np.random.default_rng(seed)
     g1 = rng.choice(BASES, size=4000).tobytes()
     g2 = repeat_rich_genome(rng, k=k)
     gA = rng.choice(BASES, size=2400).tobytes()
@@ -1112,10 +1124,115 @@ def record_two_stress():
             for st in ("one", "two")}
 
 
+#: the large k of the HashSet corrector tests (one even), and the k at
+#: which br_tpu's Tpu2Corrector is recorded beside its oracle
+HASH_KS = (19, 20, 21, 25, 31)
+HASH_ENGINE_K = 21
+#: the chunk of the large-k corrector tests (2^12 positions)
+HASH_CHUNK = 1 << 12
+FULL = ["one", "two", "graph", "greedy", "gap-size"]
+
+
+def hash_golden_path(k: int) -> str:
+    return os.path.join(os.path.dirname(__file__), "golden",
+                        f"torch_hash_k{k}.npz")
+
+
+def hash_cases(k: int):
+    """(genome, reads) of the large-k corrector tests at k: fuzz reads of
+    a 6 kb random genome; a read whose substitutions 8 apart nest past
+    SLOTS records (its site caps, on the wide retry too, so the native
+    engine corrects it); an impure read; a read too long for a chunk of
+    HASH_CHUNK positions."""
+    rng = np.random.default_rng(2000 + k)
+    g = rng.choice(BASES, size=6000).tobytes()
+    reads = fuzz_reads(rng, g, 8, 3, k=k)
+    lo = int(rng.integers(0, 5000))
+    r = bytearray(g[lo : lo + 400])
+    for t in range(11):
+        p = 60 + 8 * t
+        r[p] = ord("ACTG"[("ACTG".index(chr(r[p])) + 1) % 4])
+    reads.append(bytes(r))
+    reads.append(g[:300] + b"N" + g[301:700])
+    reads.append(g[:4000])
+    return g, reads
+
+
+def hash_of_solid(solid):
+    """The port's HashSet holding exactly the canonical k-mers of a
+    SolidSet: bit idx of the bitfield is the canonical k-mer whose
+    popcount is even and whose top 2k-1 bits are idx."""
+    from br_tpu_torch import codec
+    from br_tpu_torch.set.hash import HashSet
+
+    idx = np.flatnonzero(np.unpackbits(solid.bits, bitorder="little"))
+    idx = idx.astype(np.uint64)
+    low = codec.popcount_np(idx) & np.uint64(1)
+    return HashSet(solid.k, ((idx << np.uint64(1)) | low).tolist())
+
+
+def record_hash(k: int, engine: bool = True):
+    """br_tpu's Tpu2Corrector (where ``engine``) and its oracle on
+    hash_cases(k) with the default chain, both two_side values: name ->
+    list of reads.  The Tpu2Corrector takes every read but the last, too
+    long for the port's test chunk (br_tpu's bucketed engine has no such
+    bound, and would compile its programs again for that read's length
+    bucket); the oracle takes them all.  br_tpu's large-k engine takes
+    tens of minutes and tens of GB on the CPU, so the recordings hold it
+    at k = 21 (its own test's k, tests/test_engine2.py) and the oracle at
+    every k."""
+    from br_tpu.correct import build_methods, correct_read
+    from br_tpu.correct.engine2 import Tpu2Corrector
+    from br_tpu.set.hash import HashSet
+
+    g, reads = hash_cases(k)
+    hset = HashSet.from_sequences([g], k)
+    methods = build_methods(FULL, hset, C, MS)
+    out = {}
+    for two_side in (False, True):
+        if engine:
+            tc_ = Tpu2Corrector(hset, FULL, confirm=C, max_search=MS)
+            tc_.TARGET_ELEMS = 1 << 15
+            out[f"tpu2_{int(two_side)}"] = tc_.correct_batch(reads[:-1],
+                                                              two_side)
+        out[f"oracle_{int(two_side)}"] = [
+            correct_read(r, methods, two_side) for r in reads]
+    return out
+
+
+def save_reads(outs, path):
+    """name -> list of bytes, as (lengths, concatenated bytes) arrays."""
+    arrs = {}
+    for name, seqs in outs.items():
+        arrs[f"{name}/len"] = np.array([len(s) for s in seqs], np.int64)
+        arrs[f"{name}/bytes"] = np.frombuffer(b"".join(seqs), np.uint8)
+    np.savez_compressed(path, **arrs)
+
+
+def load_reads(path):
+    """The inverse of save_reads."""
+    z = np.load(path)
+    out = {}
+    for key in z.files:
+        name, kind = key.rsplit("/", 1)
+        if kind != "len":
+            continue
+        lens, data = z[f"{name}/len"], z[f"{name}/bytes"].tobytes()
+        ends = np.cumsum(lens)
+        out[name] = [data[e - n : e] for e, n in zip(ends, lens)]
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
     for st in sys.argv[1:] or STRATEGIES + ("two_stress", "greedy_rewind"):
+        if st.startswith("hash_k"):   # hash_k19 ... hash_k31
+            k = int(st[6:])
+            save_reads(record_hash(k, engine=k == HASH_ENGINE_K),
+                       hash_golden_path(k))
+            print("wrote", hash_golden_path(k), flush=True)
+            continue
         if st.endswith("_k17"):   # one_k17 ... gap-size_k17
             st = st[:-4]
             save_golden(record_k17(st), golden_path_k17(st))
