@@ -2,23 +2,26 @@
 ``br_tpu.correct.device_codec``).
 
 Two kinds of membership set reach the device: a solid bitfield
-(``"solid"``: an odd k <= 17, 2^(2k-1) bits) and the sorted table of a
-``HashSet`` (``"hash"``: any k <= 31, a sorted, sentinel-padded table of
-canonical k-mers, probed by a binary search).  K-mers and bitfield words
+(``"solid"``: an odd k <= 17, 2^(2k-1) bits, int32 words) and the sorted
+table of a ``HashSet`` (``"hash"``: any k <= 31, a ``SortedTable``: the
+sorted, sentinel-padded table of canonical k-mers with its bucket index,
+probed by a short search inside one bucket).  K-mers and bitfield words
 are held in ``int64``: a 2k-bit k-mer (62 bits at k = 31) and a 32-bit
 word both fit, and every backend has the shifts, masks and comparisons on
 ``int64`` that ``uint32`` and ``uint64`` lack.  torch's ``>>`` on
 ``int64`` is arithmetic, so the group swaps of the reverse complement
-mask every right shift (``revcomp64``), and the sorted table, whose k = 31
-sentinel is bit 63, is compared as unsigned by flipping the sign bit of
-both sides (``make_hash_probe``).  The CUDA kernels
-(``br_tpu_torch/csrc``) do the same arithmetic on ``uint32`` registers for
-a bitfield at k <= 15 and ``uint64`` past it and for every sorted table;
-these functions are their plain versions' building blocks and the tensor
-form of the host codec (``br_tpu_torch.codec``).
+mask every right shift (``revcomp64``), and a canonical key with bit 63
+set (the k = 31 sentinel's) is past every bucket and reads false
+(``make_hash_probe``).  The CUDA kernels (``br_tpu_torch/csrc``) do the
+same arithmetic on ``uint32`` registers for a bitfield at k <= 15 and
+``uint64`` past it and for every sorted table; these functions are their
+plain versions' building blocks and the tensor form of the host codec
+(``br_tpu_torch.codec``).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -43,9 +46,8 @@ MAX_K = 31
 #: instantiations, for a bitfield; past it the 64-bit ones).
 MAX_K32 = 15
 #: the set kinds: a solid bitfield (int32 words) and the sorted table of
-#: a HashSet (int64).
+#: a HashSet (a SortedTable).
 KINDS = ("solid", "hash")
-_SIGN = -(1 << 63)
 
 
 def check_k(k: int, kind: str = "solid") -> None:
@@ -70,32 +72,87 @@ def kmer_dtype(k: int, kind: str = "solid") -> torch.dtype:
     return torch.int32 if kind == "solid" and k <= MAX_K32 else torch.int64
 
 
-def table_kind(table: torch.Tensor) -> str:
-    """The set kind of a device table, from its dtype."""
-    if table.dtype == torch.int32:
-        return "solid"
-    if table.dtype == torch.int64:
+@dataclass(frozen=True)
+class SortedTable:
+    """The sorted table of a ``HashSet`` on a device, with its bucket
+    index (``sorted_table`` builds it): what the ``_h`` kernels and K9
+    take, and their plain versions.
+
+    ``table``: (n,) int64, n a power of two, the canonical k-mers
+    ascending (the uint64 bits), then sentinels above every k-mer
+    (``HashSet.device_table``).  ``starts``: (2^b + 1,) int32;
+    ``starts[i]`` is the first position whose entry's top b bits (of 2k)
+    are >= i, counting real entries only, so bucket i is ``table[starts[i]
+    : starts[i+1]]``.  ``shift``: 2k - b, an entry's bucket is ``entry >>
+    shift``.  ``bucket_levels``: the bit length of the largest bucket, the
+    steps of the search inside one."""
+
+    table: torch.Tensor
+    starts: torch.Tensor
+    shift: int
+    bucket_levels: int
+
+    @property
+    def buckets(self) -> int:
+        """2^b."""
+        return self.starts.shape[0] - 1
+
+
+def table_kind(table) -> str:
+    """The set kind of a device table: ``"solid"`` for int32 bitfield
+    words, ``"hash"`` for a ``SortedTable``.  A bare int64 table, whose
+    index is missing, is refused."""
+    if isinstance(table, SortedTable):
         return "hash"
-    raise TypeError(f"table has dtype {table.dtype}: int32 bitfield words "
-                    "or an int64 sorted table")
+    if isinstance(table, torch.Tensor) and table.dtype == torch.int32:
+        return "solid"
+    if isinstance(table, torch.Tensor) and table.dtype == torch.int64:
+        raise TypeError("an int64 sorted table without its bucket index: "
+                        "build it with device_codec.sorted_table(table, k) "
+                        "(HashSet.device_table_tensor does)")
+    raise TypeError(f"table is {type(table).__name__} "
+                    f"{getattr(table, 'dtype', '')}: int32 bitfield words "
+                    "or a SortedTable")
 
 
 def table_levels(table: torch.Tensor) -> int:
-    """The binary search's steps over a sorted table of n entries."""
+    """The binary search's steps over a sorted table of n entries (the
+    whole-table search of br_tpu's make_hash_probe)."""
     return max(0, (table.shape[0] - 1).bit_length())
 
 
-def check_table(table: torch.Tensor, k: int) -> None:
-    """A bitfield holds 2^(2k-1) bits, one per canonical k-mer; a sorted
-    table is padded to a power of two entries (``HashSet.device_table``),
-    the 2^levels the kernels' search takes."""
-    n = table.shape[0]
-    if table_kind(table) == "hash":
-        if n < 1 or n & (n - 1):
-            raise ValueError(f"sorted table has {n} entries, not a power "
-                             "of two")
-    elif n < max(1, (1 << (2 * k - 1)) // 32):
-        raise ValueError(f"table has {n} words, too few for k={k}")
+#: the largest b of a bucket index: 2^30 + 1 offsets, 4 GiB
+MAX_INDEX_BITS = 30
+
+
+def index_bits(table: torch.Tensor, k: int) -> int:
+    """The default b of a table's bucket index: levels - 1, two entries
+    a bucket on average for a full table, the index a quarter of the
+    table's bytes (at most 2k, the k-mer's bits)."""
+    return max(0, min(table_levels(table) - 1, 2 * k, MAX_INDEX_BITS))
+
+
+def sorted_table(table: torch.Tensor, k: int,
+                 bits: int | None = None) -> SortedTable:
+    """The bucket index of a padded sorted table (int64, on its device),
+    built there: ``bincount`` of each real entry's top ``bits`` bits
+    (default ``index_bits``), then ``cumsum``; the sentinels are left
+    out."""
+    check_k(k, "hash")
+    if table.dtype != torch.int64 or table.dim() != 1:
+        raise TypeError("a sorted table is a 1-D int64 tensor")
+    b = index_bits(table, k) if bits is None else bits
+    if not 0 <= b <= min(2 * k, MAX_INDEX_BITS):
+        raise ValueError(f"index bits {b} outside [0, "
+                         f"{min(2 * k, MAX_INDEX_BITS)}] at k={k}")
+    shift = 2 * k - b
+    real = table[(table >= 0) & (table <= mask(k))]
+    counts = torch.bincount(real >> shift, minlength=1 << b)
+    starts = torch.zeros((1 << b) + 1, dtype=torch.int32,
+                         device=table.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return SortedTable(table.contiguous(), starts, shift,
+                       int(counts.max()).bit_length())
 
 
 def encode_ascii(ascii_arr: torch.Tensor) -> torch.Tensor:
@@ -179,42 +236,48 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
-def make_hash_probe(table: torch.Tensor, k: int):
-    """Membership closure over a sorted table of canonical k-mers (int64
-    holding the uint64 bits of ``HashSet.device_table``): the plain
-    version of K9, br_tpu's ``make_hash_probe``.
+def make_hash_probe(table: SortedTable, k: int):
+    """Membership closure over a ``SortedTable``: the plain version of K9
+    and of ``br_probe_sorted`` in the ``_h`` kernels (csrc/common.cuh),
+    stepping as they do; it equals br_tpu's ``make_hash_probe``, a binary
+    search of the whole table.
 
-    ``probe(kmer) -> bool``: canonicalise, then a branchless binary search
-    of ``levels = (n-1).bit_length()`` steps (``pos`` moves to
-    ``min(pos + 2^level, n-1)`` where that entry is <= the k-mer; with n
-    a power of two, as every device table is, the min never bites), and
-    ``table[pos] == cano`` at the end.  Entries compare as unsigned: the
-    sign bit of both sides is flipped (the k = 31 sentinel is 1 << 63)."""
-    n = table.shape[0]
-    levels = max(0, (n - 1).bit_length())
-    flipped = table ^ _SIGN
-    clip = n & (n - 1) != 0
+    ``probe(kmer) -> bool``: canonicalise; a key past 2k bits (bucket
+    2^b or more, bit 63 included) reads false without indexing
+    ``starts``; else its bucket ``[lo, hi)`` is read from the index and
+    searched in ``bucket_levels`` fixed steps from ``pos = lo - 1``:
+    ``cand = pos + 2^level`` moves ``pos`` where ``cand < hi`` and
+    ``table[cand] <= cano``, and the key is found where a taken entry
+    equals it.  Inside a bucket every entry is a real k-mer, so the
+    compares need no unsigned form."""
+    if table_kind(table) != "hash":
+        raise TypeError("make_hash_probe takes a SortedTable")
+    entries, starts = table.table, table.starts
+    n, shift, levels = entries.shape[0], table.shift, table.bucket_levels
 
     def probe(kmer: torch.Tensor) -> torch.Tensor:
         cano = canonical_any(kmer.long(), k)
-        if n == 0:
-            return torch.zeros(cano.shape, dtype=torch.bool,
-                               device=cano.device)
-        key = cano ^ _SIGN
-        pos = torch.zeros_like(cano)
+        inb = (cano >= 0) & (cano <= mask(k))
+        bucket = torch.where(inb, cano >> shift, 0)
+        lo = gather(starts, bucket).long()
+        hi = torch.where(inb, gather(starts, bucket + 1).long(), lo)
+        pos = lo - 1
+        found = torch.zeros(cano.shape, dtype=torch.bool,
+                            device=cano.device)
         for level in reversed(range(levels)):
             cand = pos + (1 << level)
-            if clip:
-                cand = cand.clamp(max=n - 1)
-            pos = torch.where(gather(flipped, cand) <= key, cand, pos)
-        return gather(table, pos) == cano
+            x = gather(entries, cand.clamp(max=n - 1))
+            take = (cand < hi) & (x <= cano)
+            pos = torch.where(take, cand, pos)
+            found |= take & (x == cano)
+        return found
 
     return probe
 
 
-def make_probe(table: torch.Tensor, k: int):
+def make_probe(table, k: int):
     """The membership closure of a device table: the bitfield probe for
-    int32 words, the sorted-table probe for an int64 table."""
+    int32 words, the bucketed search for a ``SortedTable``."""
     if table_kind(table) == "hash":
         return make_hash_probe(table, k)
     return make_solid_probe_any(table, k)

@@ -32,12 +32,13 @@ The set is a solid bitfield or a ``HashSet``.  A bitfield at an odd k up
 to 15 runs the kernels' 32-bit instantiations, at k = 17 their 64-bit
 ones; a ``HashSet`` (any k up to 31: br's ``large-kmer``) runs their
 ``_h`` instantiations, 64-bit registers probing its sorted table by a
-binary search (``kernels.table_kernel``).  The bitfield may be a host
-``SolidSet`` or a ``DeviceSolidSet`` built on the device
-(``set/device_build.py``): then the table stays where it was built, and a
-host copy of it is made only when the native engine first needs one.  A
-``HashSet``'s padded table is copied to the device once; the native
-engine takes the host set itself.
+search inside the k-mer's bucket (``kernels.table_kernel``).  The
+bitfield may be a host ``SolidSet`` or a ``DeviceSolidSet`` built on the
+device (``set/device_build.py``): then the table stays where it was
+built, and a host copy of it is made only when the native engine first
+needs one.  A ``HashSet``'s padded table is copied to the device once
+and its bucket index built there (``HashSet.device_table_tensor``),
+shared by the wide sibling; the native engine takes the host set itself.
 """
 
 from __future__ import annotations
@@ -110,8 +111,8 @@ def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
     past out_len are 0.  ``ms`` and ``nb`` are greedy's search length and
     validation count; ``walk_max`` bounds the walks of ``graph`` and
     ``gap-size`` (the wide profile: WIDE_WALK_MAX).  The table is int32
-    bitfield words or a sorted int64 table
-    (``HashSet.device_table_tensor``): its dtype picks the kernels, and
+    bitfield words or a ``device_codec.SortedTable``
+    (``HashSet.device_table_tensor``): its kind picks the kernels, and
     the k its kind allows is checked where it is given."""
     check_strategy(strategy)
     dc.check_k(k, "hash")
@@ -209,6 +210,7 @@ class Torch3Corrector:
                      if self.kind == "hash"
                      else valid_kmer.device_words(self.device))
         #: the device table: bitfield words, or the padded sorted table
+        #: with its bucket index (a SortedTable)
         self.table = table
         #: the walk bound of this corrector's passes; a corrector on the
         #: default profile retries capped reads on a wide sibling

@@ -10,7 +10,8 @@ transition mask T; then the site list (position of every transition, in
 order, for the first NS of them) and the reads whose sites overflow NS.
 
 The table is a solid bitfield (int32 words) or the sorted table of a
-``HashSet`` (int64, ``device_codec.make_probe``).  K-mers are int32 for a
+``HashSet`` with its bucket index (a ``device_codec.SortedTable``,
+``device_codec.make_probe``).  K-mers are int32 for a
 bitfield at k <= 15 and int64 past it (the probe index ``cano >> 1`` then
 reaches 2^33) and for a sorted table (k <= 31); the CUDA tensors' launch
 takes the kernel's 64-bit or sorted-table instantiation there
@@ -50,10 +51,9 @@ def _check(table, codes, rstart, rlen, k: int, NS: int) -> None:
     dc.check_k(k, dc.table_kind(table))
     dev = codes.device
     kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(table, "table", table.dtype, dev)
     kernels.check(rstart, "rstart", torch.int32, dev)
     kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
-    dc.check_table(table, k)
+    kernels.check_table(table, k, dev)
     check_slots(rstart)
     if not 0 < codes.shape[0] < BIG or NS < 1:
         raise ValueError("bad chunk or site capacity")
@@ -83,9 +83,9 @@ def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
     scratch = torch.zeros(ntiles + 1 + (R + 7) // 8, dtype=torch.int64,
                           device=dev)
     cap_read = scratch[ntiles + 1:].view(torch.uint8)[:R].view(torch.bool)
-    name, extra = kernels.table_kernel("dense_probe", k, table)
+    name, tab, extra = kernels.table_kernel("dense_probe", k, table)
     kernels.launch(
-        name, codes, table, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V,
+        name, codes, tab, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V,
         T, s_pos, cap_read, n_sites, scratch, scratch[ntiles:], *extra)
     return Dense(kmers, vraw, V, T, s_pos, n_sites, cap_read)
 

@@ -62,13 +62,12 @@ def check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen,
     dev = codes.device
     CHUNK = codes.shape[0]
     kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(table, "table", table.dtype, dev)
     kernels.check(kmers, "kmers", dc.kmer_dtype(k, kind), dev, CHUNK)
     kernels.check(s_pos, "s_pos", torch.int32, dev)
     kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
     kernels.check(rstart, "rstart", torch.int32, dev)
     kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
-    dc.check_table(table, k)
+    kernels.check_table(table, k, dev)
     check_slots(rstart)
 
 
@@ -120,9 +119,9 @@ def _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart, rlen,
                     k: int, c: int) -> Sites:
     NS = s_pos.shape[0]
     out = empty_sites(NS, 1, codes.device)
-    name, extra = kernels.table_kernel("one_sites", k, table)
+    name, tab, extra = kernels.table_kernel("one_sites", k, table)
     kernels.launch(
-        name, codes, table, kmers, s_pos, n_sites, rstart, rlen,
+        name, codes, tab, kmers, s_pos, n_sites, rstart, rlen,
         codes.shape[0], rstart.shape[0], k, c, NS, *out, *extra)
     return out
 

@@ -44,9 +44,9 @@ def two_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
     if kernels.on_cuda(codes):
         NS = s_pos.shape[0]
         out = empty_sites(NS, 1, codes.device)
-        name, extra = kernels.table_kernel("two_sites", k, table)
+        name, tab, extra = kernels.table_kernel("two_sites", k, table)
         kernels.launch(
-            name, codes, table, kmers, s_pos, n_sites, rstart, rlen,
+            name, codes, tab, kmers, s_pos, n_sites, rstart, rlen,
             codes.shape[0], rstart.shape[0], k, c, NS, *out, *extra)
         return out
     return two_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,

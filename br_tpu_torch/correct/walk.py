@@ -57,9 +57,9 @@ def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen,
                              "positions and a 16-byte aligned V")
         NS = s_pos.shape[0]
         out = empty_sites(NS, wp.ew, codes.device)
-        name, extra = kernels.table_kernel("walk_sites", k, table)
+        name, tab, extra = kernels.table_kernel("walk_sites", k, table)
         kernels.launch(
-            name, codes, table, kmers, V, s_pos, n_sites, rstart, rlen,
+            name, codes, tab, kmers, V, s_pos, n_sites, rstart, rlen,
             codes.shape[0], rstart.shape[0], k, c, NS, mode, walk_max, wp.ew,
             *out, *extra)
         return out

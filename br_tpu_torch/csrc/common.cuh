@@ -13,9 +13,11 @@
 // is whichever of {kmer, revcomp(kmer)} has an even popcount; its solid
 // bit is bit (cano >> 1) & 31 of little-endian word (cano >> 1) >> 5 (at
 // k = 17 the bit index reaches 2^33, its word index 2^28).  A sorted
-// table holds the canonical k-mers as uint64, ascending, padded to
-// 2^levels entries with a sentinel above every k-mer (1 << min(2k+1,
-// 63), br_tpu/set/hash.py:108).
+// table holds the canonical k-mers as uint64, ascending, padded to a
+// power of two entries with a sentinel above every k-mer (1 << min(2k+1,
+// 63), br_tpu/set/hash.py:108); beside it its bucket index, 2^b + 1
+// uint32 offsets: bucket i (the real entries whose top b bits of 2k are
+// i) is [starts[i], starts[i+1]) (device_codec.SortedTable).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,33 +98,76 @@ __device__ __forceinline__ bool br_probe(const uint32_t* __restrict__ table,
   return (w >> ((uint32_t)idx & 31u)) & 1u;
 }
 
-// Membership in a sorted table of 2^levels canonical k-mers: the
-// branchless binary search of br_tpu's make_hash_probe
-// (br_tpu/correct/device_codec.py:160-175), levels dependent loads and
-// one more for the equality; unsigned compares, loads through __ldg.
-// With 2^levels entries, pos + 2^level never passes the last one, so the
-// JAX form's min(cand, n-1) is not needed.
-template <class T>
-__device__ __forceinline__ bool br_probe_sorted(
-    const uint64_t* __restrict__ table, int levels, T km, int k) {
-  const uint64_t cano = (uint64_t)br_canonical(km, k);
-  uint32_t pos = 0;
-  for (int l = levels - 1; l >= 0; --l) {
-    const uint32_t cand = pos | (1u << l);
-    BR_CHECK(cand < (1u << levels));
-    pos = __ldg(table + cand) <= cano ? cand : pos;
+// Membership of N canonical k-mers in a sorted table, by its bucket
+// index: the plain version is device_codec.make_hash_probe, and the
+// answer is br_tpu's make_hash_probe's (br_tpu/correct/device_codec.py:
+// 160-175, a branchless binary search of the whole table, levels + 1
+// dependent loads: 22 at 2^21 entries, each a 32-byte sector for 8
+// bytes).  Here a probe is one index load, its bucket's two offsets (one
+// 8-byte load where the pair is aligned), then bucket_levels fixed steps
+// from pos = lo - 1 (uint32 wrap-around; cand >= lo always): cand = pos
+// + 2^l moves pos where cand < hi and table[cand] <= cano, and the key is
+// found where a taken entry equals it.  Steps past the bucket load
+// nothing, so a bucket of s entries costs at most bit_length(s) loads,
+// inside one or two sectors.  The N index loads are issued first, then
+// the N searches step together.  A key past 2k bits (its bucket 2^b or
+// more; bit 63 set at k = 31) reads false and never indexes starts;
+// entries of later buckets and the sentinels are above every key of a
+// bucket, so the unsigned compares never leave it.  Those with need[u]
+// false load nothing and read false; the result is a bit mask.
+template <class T, int N>
+__device__ __forceinline__ uint32_t br_probe_sorted(
+    const uint64_t* __restrict__ table, const uint32_t* __restrict__ starts,
+    uint32_t n, int shift, int bucket_levels, const T (&km)[N],
+    const bool (&need)[N], int k) {
+  uint64_t cano[N];
+  uint32_t pos[N], hi[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {  // the index loads
+    cano[u] = (uint64_t)br_canonical(km[u], k);
+    uint32_t lo = 0, h = 0;
+    if (need[u] && cano[u] <= br_kmask<uint64_t>(k)) {
+      const uint64_t b = cano[u] >> shift;
+      BR_CHECK(b < (1ull << (2 * k - shift)));
+      if (b & 1) {
+        lo = __ldg(starts + b);
+        h = __ldg(starts + b + 1);
+      } else {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(starts + b));
+        lo = q.x;
+        h = q.y;
+      }
+      BR_CHECK(lo <= h && h <= n);
+    }
+    pos[u] = lo - 1u;
+    hi[u] = h;
   }
-  return __ldg(table + pos) == cano;
+  uint32_t m = 0;
+  for (int l = bucket_levels - 1; l >= 0; --l) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const uint32_t cand = pos[u] + (1u << l);
+      if (cand < hi[u]) {
+        BR_CHECK(cand < n);
+        const uint64_t x = __ldg(table + cand);
+        if (x <= cano[u]) {
+          pos[u] = cand;
+          m |= (uint32_t)(x == cano[u]) << u;
+        }
+      }
+    }
+  }
+  return m;
 }
 
 // The probe policies every k-mer kernel is templated on: probe(km, k)
 // is one membership test; many(km, need, k) makes N independent tests
 // (those with need[u] false are not loaded and read false) and returns
 // them as a bit mask, their loads interleaved: for the bitfield one load
-// each, all issued before any is used; for the sorted table the N
-// searches step level by level together.  kMaxK is the largest k the
-// policy takes in a register of type T, which sizes the code windows and
-// the greedy DP.
+// each, all issued before any is used; for the sorted table the N index
+// loads, then the N bucket searches stepping together.  kMaxK is the
+// largest k the policy takes in a register of type T, which sizes the
+// code windows and the greedy DP.
 struct BrBitProbe {
   const uint32_t* __restrict__ words;
   template <class T>
@@ -152,41 +197,40 @@ struct BrBitProbe {
   }
 };
 
+// table: n uint64 entries; starts: its 2^(2k - shift) + 1 bucket offsets
+// (8-byte aligned); bucket_levels: the bit length of its largest bucket.
 struct BrSortedProbe {
   const uint64_t* __restrict__ table;
-  int levels;
+  const uint32_t* __restrict__ starts;
+  uint32_t n;
+  int shift;
+  int bucket_levels;
   template <class T>
   static constexpr int kMaxK = 31;
 
   template <class T>
   __device__ __forceinline__ bool operator()(T km, int k) const {
-    return br_probe_sorted(table, levels, km, k);
+    const T one[1] = {km};
+    const bool all[1] = {true};
+    return br_probe_sorted(table, starts, n, shift, bucket_levels, one,
+                           all, k);
   }
   template <class T, int N>
   __device__ __forceinline__ uint32_t many(const T (&km)[N],
                                            const bool (&need)[N],
                                            int k) const {
-    uint64_t cano[N];
-    uint32_t pos[N];
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      cano[u] = (uint64_t)br_canonical(km[u], k);
-      pos[u] = 0;
-    }
-    for (int l = levels - 1; l >= 0; --l) {
-#pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const uint32_t cand = pos[u] | (1u << l);
-        if (need[u] && __ldg(table + cand) <= cano[u]) pos[u] = cand;
-      }
-    }
-    uint32_t m = 0;
-#pragma unroll
-    for (int u = 0; u < N; ++u)
-      m |= (uint32_t)(need[u] && __ldg(table + pos[u]) == cano[u]) << u;
-    return m;
+    return br_probe_sorted(table, starts, n, shift, bucket_levels, km,
+                           need, k);
   }
 };
+
+// A sorted-table entry point's trailing parameters before the stream
+// (kernels.SORTED_ARGS), and the probe they make with its table.
+#define BR_SORTED_PARAMS \
+  const void *starts, int n, int shift, int bucket_levels
+#define BR_SORTED_PROBE(table)                                           \
+  (BrSortedProbe{(const uint64_t*)(table), (const uint32_t*)starts,      \
+                 (uint32_t)n, shift, bucket_levels})
 
 // last r in [0, n) with a[r] <= x, or -1 (a sorted ascending)
 __device__ __forceinline__ int br_slot_of(const int32_t* a, int n, int x) {

@@ -49,8 +49,9 @@
 // Three instantiations from one source: br_dense_probe (uint32_t k-mers
 // written as int32, a bitfield at k <= 15), br_dense_probe64 (uint64_t,
 // int64, a bitfield at k = 17) and br_dense_probe_h (uint64_t, int64, the
-// sorted table of a HashSet at any k <= 31: its probe is a binary search,
-// br_probe_sorted), the same code.  With 64-bit registers a run's k-1 <=
+// sorted table of a HashSet at any k <= 31: its probe is a search inside
+// the k-mer's bucket, br_probe_sorted, the 16 of a run stepping
+// together), the same code.  With 64-bit registers a run's k-1 <=
 // 30 halo codes are the previous two lanes' runs (the second by a shuffle
 // of two, lanes 0 and 1 load it), and lane 0's tile-edge k-mer (ending at
 // p0-1) rolls over both; the k-mers are stored as eight 16-byte stores a
@@ -337,7 +338,6 @@ extern "C" int br_dense_probe64(K1_ARGS, void* stream) {
   return dense_probe_launch<uint64_t>(
       K1_PASS(BrBitProbe{(const uint32_t*)table}));
 }
-extern "C" int br_dense_probe_h(K1_ARGS, int levels, void* stream) {
-  return dense_probe_launch<uint64_t>(
-      K1_PASS((BrSortedProbe{(const uint64_t*)table, levels})));
+extern "C" int br_dense_probe_h(K1_ARGS, BR_SORTED_PARAMS, void* stream) {
+  return dense_probe_launch<uint64_t>(K1_PASS(BR_SORTED_PROBE(table)));
 }

@@ -33,7 +33,8 @@
 // T = uint32_t for k <= 15 and uint64_t for k = 17; BrSortedProbe, the
 // sorted table of a HashSet, with T = uint64_t for any k <= 31.  Each
 // site kernel's source instantiates all three and has one entry point for
-// each (the sorted one named <entry>_h, which takes the table's levels).
+// each (the sorted one named <entry>_h, which takes the table's bucket
+// index, BR_SORTED_PARAMS).
 //
 // Records: rec_p / rec_c / rec_s (NS*SLOTS) hold position, emitted base
 // count and consumed positions; rec_e (NS*SLOTS, EW) the emitted bases,
@@ -448,7 +449,7 @@ static inline int br_warp_site_blocks(int NS, int per_block) {
 
 // The three entry points of a site kernel: <entry> (uint32_t, bitfield),
 // <entry>64 (uint64_t, bitfield) and <entry>_h (uint64_t, sorted table,
-// levels before the stream); ARGS is the parameter list up to the stream,
+// its index before the stream); ARGS is the parameter list up to the stream,
 // whose second parameter is `const void* table`, and LAUNCH(T, probe)
 // the launch with the register type and the probe in the table's place.
 #define BR_SITE_ENTRIES(entry, ARGS, LAUNCH)                              \
@@ -458,7 +459,6 @@ static inline int br_warp_site_blocks(int NS, int per_block) {
   extern "C" int entry##64(ARGS, void* stream) {                          \
     return LAUNCH(uint64_t, BrBitProbe{(const uint32_t*)table});          \
   }                                                                       \
-  extern "C" int entry##_h(ARGS, int levels, void* stream) {              \
-    return LAUNCH(uint64_t, (BrSortedProbe{(const uint64_t*)table,        \
-                                           levels}));                    \
+  extern "C" int entry##_h(ARGS, BR_SORTED_PARAMS, void* stream) {      \
+    return LAUNCH(uint64_t, BR_SORTED_PROBE(table));                      \
   }

@@ -61,8 +61,9 @@
 // with 64-bit registers a warp's slice is (walk_max+1) * 8 bytes: 130,624
 // B a block of 8 warps at walk_max 2040, inside the 227 KB a block may ask
 // for, at one block an SM where the 32-bit history fits one more.  With a
-// sorted table a walk step's 4 successor probes are 4 binary searches on
-// lanes 0-3, levels + 1 dependent loads where the bitfield takes one.
+// sorted table a walk step's 4 successor probes are 4 bucket searches on
+// lanes 0-3, an index load and up to bucket_levels loads inside the
+// bucket where the bitfield takes one.
 #include "sites_common.cuh"
 
 #define WALK_RUN 0

@@ -5,10 +5,11 @@ Each kernel is a plain C entry point of one CUDA C++ source under
 three instantiations (``variant``): for a solid bitfield, one for 32-bit
 registers (k <= 15) and one named ``<name>64`` for 64-bit registers
 (k = 17); for the sorted table of a ``HashSet``, one named ``<name>_h``
-(64-bit registers, a binary-search probe, any k <= 31), whose entry point
-takes the search's step count ``levels`` as its last argument before the
-stream.  K8 has a count and a pack kernel; K9 ``hash_probe`` is the
-sorted-table probe on its own.  At first use a
+(64-bit registers, a bucketed search, any k <= 31), whose entry point
+takes the table's bucket index (``device_codec.SortedTable``: the
+offsets, the table's entry count, ``shift`` and ``bucket_levels``) as its
+last arguments before the stream.  K8 has a count and a pack kernel; K9
+``hash_probe`` is the sorted-table probe on its own.  At first use a
 source is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
 library under ``<repo>/build/kernels`` (git-ignored) and loaded with
 ``ctypes``; every pointer and the stream pass as ``c_void_p``.
@@ -36,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from br_tpu_torch.correct.device_codec import MAX_K32
+from br_tpu_torch.correct import device_codec as dc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -62,21 +63,25 @@ KERNELS = {
     "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "p"
                     + "p"),
     "solid_pack": ("solid_build.cu", "br_solid_pack", "plipi" + "p"),
-    "hash_probe": ("hash_probe.cu", "br_hash_probe", "pi" + "pli" + "p"
+    "hash_probe": ("hash_probe.cu", "br_hash_probe", "ppiii" + "pli" + "p"
                    + "p"),
 }
 #: the 64-bit instantiations (a bitfield at k = 17) of the k-mer kernels:
 #: the same source and arguments, entry point ``<entry>64``.
 WIDE = ("dense_probe", "one_sites", "two_sites", "walk_sites",
         "greedy_sites", "solid_count")
-#: the sorted-table instantiations: entry point ``<entry>_h``, with
-#: ``levels`` (an int) before the stream.
+#: the sorted-table instantiations: entry point ``<entry>_h``, with the
+#: bucket index (``SORTED_ARGS``) before the stream.
 HASHED = ("dense_probe", "one_sites", "two_sites", "walk_sites",
           "greedy_sites")
 KERNELS.update({f"{n}64": (KERNELS[n][0], KERNELS[n][1] + "64",
                            KERNELS[n][2]) for n in WIDE})
+#: a sorted table's trailing arguments: the index offsets, the table's
+#: entry count, shift and bucket_levels
+SORTED_ARGS = "piii"
 KERNELS.update({f"{n}_h": (KERNELS[n][0], KERNELS[n][1] + "_h",
-                           KERNELS[n][2][:-1] + "ip") for n in HASHED})
+                           KERNELS[n][2][:-1] + SORTED_ARGS + "p")
+                for n in HASHED})
 
 #: device kernels an entry point launches per call, where more than one.
 PER_CALL = {"chain_splice": 2}
@@ -118,18 +123,56 @@ def variant(name: str, k: int, kind: str = "solid") -> str:
     ``MAX_K32``."""
     if kind == "hash":
         return f"{name}_h"
-    return f"{name}64" if k > MAX_K32 else name
+    return f"{name}64" if k > dc.MAX_K32 else name
 
 
 def table_kernel(name: str, k: int, table) -> tuple:
-    """(kernel name, trailing arguments) of k-mer kernel ``name`` for a
-    device table: the ``_h`` instantiation and the search's ``levels``
-    for a sorted table, the bitfield's instantiation and none else."""
-    from br_tpu_torch.correct import device_codec as dc
-
+    """(kernel name, table tensor, trailing arguments) of k-mer kernel
+    ``name`` for a device table: for a ``SortedTable`` the ``_h``
+    instantiation, its entries and ``sorted_args``; for bitfield words
+    the bitfield's instantiation, the words and none."""
     kind = dc.table_kind(table)
-    extra = (dc.table_levels(table),) if kind == "hash" else ()
-    return variant(name, k, kind), extra
+    if kind == "hash":
+        return variant(name, k, kind), table.table, sorted_args(table)
+    return variant(name, k, kind), table, ()
+
+
+def sorted_args(table) -> tuple:
+    """A ``SortedTable``'s arguments after the table (``SORTED_ARGS``):
+    the index offsets, the table's entry count, shift, bucket_levels."""
+    return (table.starts, table.table.shape[0], table.shift,
+            table.bucket_levels)
+
+
+def check_table(table, k: int, device) -> None:
+    """Raise unless ``table`` is a device table for k on ``device``:
+    int32 bitfield words, 2^(2k-1) bits, one per canonical k-mer; or a
+    ``SortedTable`` (``HashSet.device_table``'s power of two int64
+    entries), its index built for k, its int32 offsets 8-byte aligned
+    (the kernels read a bucket's two offsets in one load where they
+    can)."""
+    if dc.table_kind(table) == "solid":
+        check(table, "table", torch.int32, device)
+        if table.shape[0] < max(1, (1 << (2 * k - 1)) // 32):
+            raise ValueError(f"table has {table.shape[0]} words, too few "
+                             f"for k={k}")
+        return
+    check(table.table, "table", torch.int64, device)
+    check(table.starts, "starts", torch.int32, device)
+    n, nb = table.table.shape[0], table.buckets
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"sorted table has {n} entries, not a power of "
+                         "two")
+    if nb < 1 or nb & (nb - 1):
+        raise ValueError(f"bucket index has {nb} + 1 offsets, not a power "
+                         "of two + 1")
+    if table.shift != 2 * k - (nb.bit_length() - 1):
+        raise ValueError(f"bucket index of shift {table.shift} and {nb} "
+                         f"buckets was not built for k={k}")
+    if not 0 <= table.bucket_levels <= 31:
+        raise ValueError(f"bucket_levels {table.bucket_levels}")
+    if table.starts.data_ptr() % 8:
+        raise ValueError("bucket index offsets not 8-byte aligned")
 
 
 def nvcc_flags() -> list:

@@ -9,9 +9,11 @@ array: ``from_sequences`` adds each sequence's canonical k-mers in bulk
 (``np.unique``), so a 2 Mb genome at k = 21 (about 2 M k-mers) takes
 seconds, not the minutes of a Python set.  ``device_table`` pads the
 sorted table to a power of two with an out-of-space sentinel, and
-``device_table_tensor`` puts those bits on a device as ``int64``; the
-probe there is a binary search (``device_codec.make_hash_probe``, kernel
-K9 and the ``_h`` instantiations of the k-mer kernels).
+``device_table_tensor`` puts those bits on a device as ``int64`` and
+builds their bucket index there (a ``device_codec.SortedTable``); the
+probe there reads a k-mer's bucket from the index and searches it
+(``device_codec.make_hash_probe``, kernel K9 and the ``_h``
+instantiations of the k-mer kernels).
 """
 
 from __future__ import annotations
@@ -157,9 +159,13 @@ class HashSet:
         return np.concatenate([table, pad])
 
     def device_table_tensor(self, device):
-        """``device_table`` as an ``int64`` tensor on ``device``: the same
-        64 bits an entry (the k = 31 sentinel reads as negative; the
-        probes compare as unsigned)."""
+        """``device_table`` on ``device`` with its bucket index, built
+        there once: a ``device_codec.SortedTable`` whose ``table`` is an
+        ``int64`` tensor of the same 64 bits an entry (the k = 31
+        sentinel reads as negative)."""
         import torch
 
-        return torch.from_numpy(self.device_table().view(np.int64)).to(device)
+        from br_tpu_torch.correct import device_codec as dc
+
+        table = torch.from_numpy(self.device_table().view(np.int64))
+        return dc.sorted_table(table.to(device), self._k)

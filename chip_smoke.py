@@ -83,8 +83,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    tree's 64-bit instantiations); its output check, as in 8, at k = 17;
 11. large k (large_k_path), two sets through `large-kmer -k 21` and the
    CLI's entry points (a HashSet, its sorted table padded to 2^21
-   entries on the card), each correcting all 2000 reads with the default
-   chain, forward then reversed, with count_s (the set's build),
+   entries on the card with its bucket index, device_codec.SortedTable;
+   the index build timed alone), each correcting all 2000 reads with the
+   default chain, forward then reversed, with count_s (the set's build),
    correct_s, reads/s, rest_s, the pass seconds per strategy, the
    fallback share, wide retries, host_oracle_s and the peak device
    memory, failing on an `_h` kernel, K3 or K4 not launched, and each
@@ -101,10 +102,15 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    plain versions on its first chunk (K6 at walk_max 248, K7 at ms 7, 14
    and 15) and its first retry chunk (K6 at walk_max 2040), and K9
    (hash_probe) on the first chunk's k-mers against its plain version
-   and torch.searchsorted, each timed as in 4; then K9 and
+   and torch.searchsorted, each timed as in 4 (with --baseline beside the
+   other tree's, whose sorted-table entry points may take the
+   whole-table search's levels: parent_args, and K9 also through bucket
+   indexes of b - 2 to b + 2 bits), with the index's statistics, the
+   probes' dependent loads and the corrector's index build's time; then
+   K9 and
    dense_probe_h at k = 31 on a sorted table
    of 2^27 entries (1 GiB, past the L2: the genome's k-mers and random
-   ones, drawn on the card), checked and timed.
+   ones, drawn on the card) with its index, checked and timed.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
@@ -311,33 +317,65 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
     return visited, hi - lo, cum[hi] - cum[lo]
 
 
+def parent_sigs(kernels):
+    """The argument letters of a parent's sorted-table entry points that
+    take the whole-table search's ``levels`` (commit 1c24d6b's csrc: an
+    int before the stream, K9's after its table) in place of the bucket
+    index."""
+    sigs = {f"{n}_h": kernels.KERNELS[n][2][:-1] + "ip"
+            for n in kernels.HASHED}
+    sigs["hash_probe"] = "pi" + "pli" + "p" + "p"
+    return sigs
+
+
+def parent_args(name, args):
+    """The launch arguments of those entry points (parent_sigs) from this
+    tree's (the bucket index, kernels.SORTED_ARGS: offsets, entry count,
+    shift, bucket_levels)."""
+    if name == "hash_probe":
+        table, _starts, n, _shift, _levels, *rest = args
+        return (table, max(0, (n - 1).bit_length()), *rest)
+    if name.endswith("_h"):
+        *head, _starts, n, _shift, _levels = args
+        return (*head, max(0, (n - 1).bit_length()))
+    return args
+
+
 def load_baseline(csrc):
-    """K1, K2, K5, K6, K7, K3 and K4 (the bitfield instantiations, 32- and
-    64-bit) as built from another tree's ``csrc`` (the parent commit's: ``git
-    archive <commit> br_tpu_torch/csrc``), those whose source or headers
-    differ from this tree's, called through this tree's wrappers (their C
-    entry points did not change).  Built with this tree's nvcc flags, one
-    nvcc each, all at once; their calls are not counted in
-    kernels.LAUNCHES.  Returns {kernel name: function with the arguments
-    of the kernel's wrapper}."""
+    """K1, K2, K5, K6, K7, K3, K4 and K9 (every instantiation: 32-bit,
+    64-bit and sorted-table) as built from another tree's ``csrc`` (the
+    parent commit's: ``git archive <commit> br_tpu_torch/csrc``), those
+    whose source or headers differ from this tree's, called through this
+    tree's wrappers.  Where the other tree's sorted-table entry points
+    take the whole-table search's ``levels`` (commit 1c24d6b's), their
+    functions in the loaded library are wrapped to launch with it in
+    place of the bucket index (parent_args);
+    every other entry point has this tree's arguments.  Built with this
+    tree's nvcc flags, one nvcc each, all at once; their calls are not
+    counted in kernels.LAUNCHES.  Returns {kernel name: function with the
+    arguments of the kernel's wrapper}."""
     from pathlib import Path
 
     from br_tpu_torch import kernels
-    from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
-                                      two, walk)
+    from br_tpu_torch.correct import (greedy, hash_probe, probe, reverse,
+                                      sites, splice, two, walk)
 
     def sources(d, name):
         d = Path(d)
         return [p.read_bytes() for p in (sorted(d.glob("*.cuh"))
                                          + [d / kernels.KERNELS[name][0]])]
 
+    levels_form = b"BR_SORTED_PARAMS" not in (Path(csrc)
+                                              / "common.cuh").read_bytes()
+    old_sigs = parent_sigs(kernels) if levels_form else {}
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     wrappers = {"dense_probe": probe.dense_probe,
                 "one_sites": sites.one_sites, "two_sites": two.two_sites,
                 "walk_sites": walk.walk_sites,
                 "greedy_sites": greedy.greedy_sites,
                 "chain_splice": splice.chain_splice,
-                "reverse_slots": reverse.reverse_slots}
+                "reverse_slots": reverse.reverse_slots,
+                "hash_probe": hash_probe.hash_probe}
     for name in list(wrappers):
         if sources(csrc, name) == sources(kernels.CSRC, name):
             log(f"  baseline {name}: the same source as this tree's, "
@@ -356,13 +394,21 @@ def load_baseline(csrc):
         log_, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
         lib = ctypes.CDLL(str(out))
-        kernels.bind(lib, [name] + ([name + "64"] if name in kernels.WIDE
-                                    else []))
+        names = ([name] + ([name + "64"] if name in kernels.WIDE else [])
+                 + ([name + "_h"] if name in kernels.HASHED else []))
+        kernels.bind(lib, names)
+        for n in set(names) & set(old_sigs):
+            # the entry point, called with this tree's arguments and the
+            # stream, launches with the parent's
+            fname = kernels.KERNELS[n][1]
+            fn = getattr(lib, fname)
+            fn.argtypes = [kernels._CTYPES[ch] for ch in old_sigs[n]]
+            setattr(lib, fname, lambda *a, fn=fn, n=n: fn(
+                *parent_args(n, a[:-1]), a[-1]))
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"  ptxas {name} (baseline): {' | '.join(regs)}")
-
     def through(name, wrapper):
         """The wrapper, launching the baseline library."""
         src = kernels.KERNELS[name][0]
@@ -381,9 +427,12 @@ def load_baseline(csrc):
 
 
 def search_entries(table, cano):
-    """The distinct entries of a sorted table that the binary searches of
-    ``cano`` (canonical k-mers, int64) read: every candidate of every
-    level and the final one, as device_codec.make_hash_probe steps."""
+    """The distinct entries of a sorted table (int64 entries) that binary
+    searches of ``cano`` (canonical k-mers, int64) over the whole table
+    read: every candidate of every level and the final one, as br_tpu's
+    make_hash_probe and the port's first design (commit 1c24d6b) step.
+    K9's and the _h K1's bound counts these, whatever the design
+    reads."""
     import torch
 
     from br_tpu_torch.correct import device_codec as dc
@@ -398,6 +447,51 @@ def search_entries(table, cano):
         pos = torch.where(flipped[cand] <= key, cand, pos)
     seen.append(torch.unique(pos))
     return int(torch.unique(torch.cat(seen)).numel())
+
+
+def bucket_stats(st, cano):
+    """A SortedTable's index and what the bucketed probes of ``cano``
+    (canonical k-mers) read, stepped as device_codec.make_hash_probe
+    steps: 2^b buckets, bucket_levels, the largest and the mean bucket
+    (real entries over buckets), the dependent loads a probe (the index
+    load and each in-bucket load: mean and most; 0 for a key past 2k
+    bits), the distinct index offsets and table entries the probes read
+    and their bytes (``probe_bytes``: 4 an offset, 8 an entry, each read
+    once; what a bound of this design counts), and the distinct 32-byte
+    sectors of the index and of the table they touch, in bytes."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+
+    k = (st.shift + st.buckets.bit_length() - 1) // 2
+    counts = st.starts.diff()
+    inb = (cano >= 0) & (cano <= dc.mask(k))
+    bucket = (cano[inb] >> st.shift)
+    lo, hi = st.starts[bucket].long(), st.starts[bucket + 1].long()
+    loads = torch.ones_like(lo)
+    pos, read = lo - 1, []
+    for level in reversed(range(st.bucket_levels)):
+        cand = pos + (1 << level)
+        ok = cand < hi
+        loads += ok.long()
+        read.append(torch.unique(cand[ok]))
+        x = st.table[cand.clamp(max=st.table.numel() - 1)]
+        pos = torch.where(ok & (x <= cano[inb]), cand, pos)
+    offsets = torch.unique(torch.cat([bucket, bucket + 1]))
+    read = torch.unique(torch.cat(read)) if read else bucket[:0]
+    return {"buckets": st.buckets, "index_bits": st.buckets.bit_length() - 1,
+            "bucket_levels": st.bucket_levels,
+            "largest_bucket": int(counts.max()),
+            "mean_bucket": float(st.starts[-1]) / st.buckets,
+            "index_bytes": st.starts.numel() * 4,
+            "dependent_loads_per_probe_mean": (
+                float(loads.sum()) / max(1, cano.numel())),
+            "dependent_loads_per_probe_max": int(loads.max()) if
+            loads.numel() else 0,
+            "offsets_read": offsets.numel(), "entries_read": read.numel(),
+            "probe_bytes": 4 * offsets.numel() + 8 * read.numel(),
+            "bucket_design_bytes": 32 * (torch.unique(offsets >> 3).numel()
+                                         + torch.unique(read >> 2).numel())}
 
 
 def two_thread_probes(probe, code_at, k, c, ii, corr, lf):
@@ -578,7 +672,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     chain-floor run.  ``baseline`` (from load_baseline) gives K1-K7 as
     another tree built them: each is checked and timed beside this tree's.
     At k = 17 the k-mer kernels are their 64-bit instantiations (names
-    ``<name>64``), with a sorted HashSet table (int64) their ``_h`` ones.
+    ``<name>64``), with a HashSet's SortedTable their ``_h`` ones.
     Without ``full`` (the k = 17 and large-k checks) the chain floors and
     K3 and K4, which carry codes and do not change with k, are left out;
     ``walks``, when given, names the (walk_max, strategy) pairs of K6 to
@@ -610,9 +704,8 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
         return kernels.variant(name, k, tkind)
 
     def based(name, *args):
-        """The baseline's call of kernel ``name`` on args, or None (none
-        for a sorted table: the baseline has no ``_h`` instantiations)."""
-        if name not in base or tkind == "hash":
+        """The baseline's call of kernel ``name`` on args, or None."""
+        if name not in base:
             return None
         return lambda: base[name](*args)
 
@@ -677,8 +770,10 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     d_plain = probe.dense_probe_plain(*d_args)
     pin_ok = d_plain.kmers != 0
     cano = dc.canonical_any(d_plain.kmers.long()[pin_ok], k)
-    if tkind == "hash":   # the table entries the searches read
-        table_bytes = 8 * search_entries(table, cano)
+    if tkind == "hash":   # the index offsets and entries the probes read
+        table_bytes = bucket_stats(table, cano)["probe_bytes"]
+        # the first design's: the entries of whole-table searches
+        pr8_bytes = 8 * search_entries(table.table, cano) - table_bytes
     else:                 # the bitfield words the probes read
         table_bytes = 4 * int(torch.unique(cano >> 6).numel())
     n_eff = min(int(d_plain.n_sites[0]), NS)
@@ -690,6 +785,10 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
             lambda: probe.dense_probe_plain(*d_args), k1_bytes, 20,
             kb=based("dense_probe", *d_args))
+    if tkind == "hash":
+        res[k1_name]["pr8_bound_ms"] = ((k1_bytes + pr8_bytes)
+                                        / HBM_BYTES_PER_S * 1e3)
+        log(f"  {k1_name}: pr8_bound_ms {res[k1_name]['pr8_bound_ms']}")
 
     def site_run(name, kern, plain, window, kreps=reps, kb=None):
         """A site kernel, compared on the entries it writes; its bytes
@@ -1105,11 +1204,12 @@ def solid_checks(seqs, k, device, sync, reps=10):
 
 def path_report(label, args, solid, corrector, n, count_s, correct_s,
                 launches, inst, n_bases, card, need,
-                max_fallback=MAX_FALLBACK):
-    """Log a main path's numbers; fail on a kernel of ``need`` not
-    launched, on a record count other than the input's or on more than
-    ``max_fallback`` of the reads on the host (None: the share is logged,
-    not held to a limit)."""
+                max_fallback=MAX_FALLBACK, set_times=None):
+    """Log a main path's numbers (``set_times``, when given, beside
+    count_s: the set's further builds, in ms); fail on a kernel of
+    ``need`` not launched, on a record count other than the input's or on
+    more than ``max_fallback`` of the reads on the host (None: the share
+    is logged, not held to a limit)."""
     kept, oracle_s = inst["kept"], inst["oracle_s"]
     st = corrector.last_stats
     reasons = cap_reasons(kept)
@@ -1121,7 +1221,7 @@ def path_report(label, args, solid, corrector, n, count_s, correct_s,
         "bases": n_bases, "solid_frac": (
             len(solid) if hasattr(solid, "device_table") else
             solid.count_ones()) / float(1 << (2 * solid.k - 1)),
-        "count_s": count_s, "correct_s": correct_s,
+        "count_s": count_s, **(set_times or {}), "correct_s": correct_s,
         "reads_per_s": n / correct_s, "bases_per_s": n_bases / correct_s,
         "pass_device_s": device_s, "host_oracle_s": sum(oracle_s),
         "rest_s": correct_s - device_s - sum(oracle_s),
@@ -1192,13 +1292,22 @@ def write_solid_csv(seqs, k, a, path):
     return int(kmers.size)
 
 
-def hash_probe_check(name, table, kmers, k, sync, reps=10):
-    """K9 on ``kmers`` against its plain version (exactly), timed as the
-    kernel checks time a kernel, beside torch.searchsorted on the same
-    canonical k-mers and the table with its sentinel mapped to INT64_MAX
-    (torch compares int64 as signed); its bound: each k-mer read and each
-    result written once, and the distinct table entries the searches
-    read.  Returns {name: {...}}."""
+def hash_probe_check(name, table, kmers, k, sync, reps=10, baseline=None,
+                     index_ms=None):
+    """K9 on ``kmers`` through ``table`` (a SortedTable) against its plain
+    version (exactly), timed as the kernel checks time a kernel, beside
+    torch.searchsorted on the same canonical k-mers and the table with its
+    sentinel mapped to INT64_MAX (torch compares int64 as signed); with
+    ``baseline``, beside the other tree's K9 (baseline, this tree, this
+    tree, baseline).  Its bound: each k-mer read and each result written
+    once, and the distinct index offsets and table entries that the
+    bucketed probes read (bucket_stats' probe_bytes); ``pr8_bound_ms``
+    keeps the first design's, the distinct entries that a binary search
+    of the whole table reads (search_entries) in their place.  Beside
+    them the index's statistics, ``index_ms`` (the index build's time)
+    and, with ``baseline``, K9's time through indexes of other widths
+    (b - 2 to b + 2, each built and checked: the b the port takes is
+    index_bits').  Returns {name: {...}}."""
     import torch
 
     from br_tpu_torch.correct import device_codec as dc
@@ -1214,38 +1323,86 @@ def hash_probe_check(name, table, kmers, k, sync, reps=10):
     err = max_abs_err((got,), (want,))
     check(err == 0, f"{name}: K9 and its plain version differ")
     cano = dc.canonical_any(kmers, k)
-    mapped = torch.where(table < 0, torch.iinfo(torch.int64).max, table)
-    pos = torch.searchsorted(mapped, cano).clamp(max=table.numel() - 1)
+    entries_t = table.table
+    mapped = torch.where(entries_t < 0, torch.iinfo(torch.int64).max,
+                         entries_t)
+    pos = torch.searchsorted(mapped, cano).clamp(max=entries_t.numel() - 1)
     check(torch.equal(got, mapped[pos] == cano),
           f"{name}: K9 and torch.searchsorted differ")
-    entries = search_entries(table, cano)
-    nbytes = 9 * kmers.numel() + 8 * entries
-    r = {"ms": cuda_ms(lambda: hash_probe(table, kmers, k), reps, sync,
-                       queued=True),
-         "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    entries = search_entries(entries_t, cano)
+    stats = bucket_stats(table, cano)
+    fn = lambda: hash_probe(table, kmers, k)  # noqa: E731
+    r = {"ms": cuda_ms(fn, reps, sync, queued=True),
+         "plain_ms": plain_ms,
+         "bound_ms": ((9 * kmers.numel() + stats["probe_bytes"])
+                      / HBM_BYTES_PER_S * 1e3),
+         "pr8_bound_ms": ((9 * kmers.numel() + 8 * entries)
+                          / HBM_BYTES_PER_S * 1e3),
          "max_abs_err": err,
          "library_ms": cuda_ms(lambda: torch.searchsorted(mapped, cano),
                                reps, sync, queued=True)}
-    log(f"kernel {name}: " + json.dumps({
-        "kernel": name, "k": k, "probes": kmers.numel(),
-        "table_entries": table.numel(), "levels": dc.table_levels(table),
-        "dependent_loads_per_probe": dc.table_levels(table) + 1,
-        "entries_read": entries, "hits": int(got.sum()),
-        "kernel_ms": r["ms"], "plain_ms": plain_ms,
-        "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
-        "ms_over_bound": r["ms"] / r["bound_ms"]}))
+    line = {"kernel": name, "k": k, "probes": kmers.numel(),
+            "table_entries": entries_t.numel(),
+            "levels": dc.table_levels(entries_t), **stats,
+            "index_build_ms": index_ms,
+            "binary_search_dependent_loads": dc.table_levels(entries_t) + 1,
+            "binary_search_entries_read": entries, "hits": int(got.sum()),
+            "kernel_ms": r["ms"], "plain_ms": plain_ms,
+            "bound_ms": r["bound_ms"], "pr8_bound_ms": r["pr8_bound_ms"],
+            "library_ms": r["library_ms"],
+            "ms_over_bound": r["ms"] / r["bound_ms"],
+            "ms_over_pr8_bound": r["ms"] / r["pr8_bound_ms"]}
+    if baseline and "hash_probe" in baseline:
+        kb = lambda: baseline["hash_probe"](table, kmers, k)  # noqa: E731
+        check(torch.equal(kb(), want), f"{name}: the baseline K9 and the "
+                                       "plain version differ")
+        t = [cuda_ms((kb, fn)[i], reps, sync, queued=True)
+             for i in (0, 1, 1, 0)]
+        r["baseline_ms"] = [t[0], t[3]]
+        line.update(baseline_ms=[t[0], t[3]], kernel_ms_pair=[t[1], t[2]])
+        line["index_bits_sweep"] = index_sweep(name, entries_t, kmers, k,
+                                               stats["index_bits"], want,
+                                               sync, reps)
+    log(f"kernel {name}: " + json.dumps(line))
     return {name: r}
 
 
-def big_table_checks(chunk, device, sync):
+def index_sweep(name, entries, kmers, k, b0, want, sync, reps):
+    """K9 on ``kmers`` through bucket indexes of b0 - 2 to b0 + 2 bits over
+    the padded sorted table ``entries``, each built, timed and held against
+    ``want``: {bits: {bucket_levels, build_ms, kernel_ms}}."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct.hash_probe import hash_probe
+
+    sweep = {}
+    for b in range(max(0, b0 - 2), min(b0 + 2, dc.MAX_INDEX_BITS, 2 * k) + 1):
+        sync()
+        t0 = time.perf_counter()
+        other = dc.sorted_table(entries, k, b)
+        sync()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(hash_probe(other, kmers, k), want),
+              f"{name}: K9 through a {b}-bit index differs")
+        sweep[b] = {"bucket_levels": other.bucket_levels,
+                    "build_ms": build_ms,
+                    "kernel_ms": cuda_ms(lambda: hash_probe(other, kmers, k),
+                                         reps, sync, queued=True)}
+        del other
+    return sweep
+
+
+def big_table_checks(chunk, device, sync, baseline=None):
     """K9 and K1 (dense_probe_h) at k = K_BIG on a sorted table of
     BIG_ENTRIES entries (1 GiB, far past the 50 MB L2, the size of a 100
     Mb genome's set): the canonical k-mers of the corpus's genome and
     random canonical k-mers, padded with the sentinel 1 << 63, drawn on
-    the card; K9 on the k-mers of ``chunk``'s positions, K1 on the chunk
-    (its reads' k-mers hit the genome's, their errors miss); each held
-    exactly against its plain version and timed.  Returns {name:
-    {...}}."""
+    the card, and its bucket index (built there, timed); K9 on the
+    k-mers of ``chunk``'s positions, K1 on the chunk (its reads' k-mers
+    hit the genome's, their errors miss); each held exactly against its
+    plain version and timed (with ``baseline``, beside the other tree's).
+    Returns {name: {...}}."""
     import torch
 
     from br_tpu_torch.correct import device_codec as dc
@@ -1273,7 +1430,12 @@ def big_table_checks(chunk, device, sync):
                                         device=device)])
     del vals
     sync()
-    res = hash_probe_check("hash_probe", table, kmers, k, sync)
+    t0 = time.perf_counter()
+    table = dc.sorted_table(table, k)
+    sync()
+    index_ms = (time.perf_counter() - t0) * 1e3
+    res = hash_probe_check("hash_probe", table, kmers, k, sync,
+                           baseline=baseline, index_ms=index_ms)
     NS = site_capacity(CHUNK)
     d_args = (table, codes, rs, rl, k, NS)
     sync()
@@ -1285,29 +1447,48 @@ def big_table_checks(chunk, device, sync):
     check(err == 0, "dense_probe_h at k=31 with the 1 GiB table: kernel "
                     "and plain version differ")
     pin_ok = dp.kmers != 0
-    entries = search_entries(table, dc.canonical_any(dp.kmers[pin_ok], k))
-    nbytes = (CHUNK + 8 * rs.numel() + 8 * entries + CHUNK * (8 + 3)
-              + 4 * NS + 4 + rs.numel())
+    cano = dc.canonical_any(dp.kmers[pin_ok], k)
+    entries = search_entries(table.table, cano)
+    stats = bucket_stats(table, cano)
+    nbytes = (CHUNK + 8 * rs.numel() + CHUNK * (8 + 3) + 4 * NS + 4
+              + rs.numel())
     name = f"dense_probe_h[k={k},1 GiB table]"
-    res[name] = {"ms": cuda_ms(lambda: probe.dense_probe(*d_args), 10, sync,
-                               queued=True),
+    fn = lambda: probe.dense_probe(*d_args)  # noqa: E731
+    res[name] = {"ms": cuda_ms(fn, 10, sync, queued=True),
                  "plain_ms": plain_ms,
-                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_ms": ((nbytes + stats["probe_bytes"])
+                              / HBM_BYTES_PER_S * 1e3),
+                 "pr8_bound_ms": ((nbytes + 8 * entries)
+                                  / HBM_BYTES_PER_S * 1e3),
                  "max_abs_err": err}
-    log(f"kernel {name}: " + json.dumps({
-        "kernel": name, "table_entries": table.numel(),
-        "entries_read": entries, "sites": int(dp.n_sites[0]),
-        "kernel_ms": res[name]["ms"], "plain_ms": plain_ms,
-        "bound_ms": res[name]["bound_ms"],
-        "ms_over_bound": res[name]["ms"] / res[name]["bound_ms"]}))
+    line = {"kernel": name, "table_entries": table.table.numel(),
+            **stats, "binary_search_entries_read": entries,
+            "sites": int(dp.n_sites[0]), "kernel_ms": res[name]["ms"],
+            "plain_ms": plain_ms, "bound_ms": res[name]["bound_ms"],
+            "pr8_bound_ms": res[name]["pr8_bound_ms"],
+            "ms_over_bound": res[name]["ms"] / res[name]["bound_ms"],
+            "ms_over_pr8_bound": (res[name]["ms"]
+                                  / res[name]["pr8_bound_ms"])}
+    if baseline and "dense_probe" in baseline:
+        kb = lambda: baseline["dense_probe"](*d_args)  # noqa: E731
+        check(max_abs_err(kb(), dp) == 0, f"{name}: the baseline and the "
+                                          "plain version differ")
+        t = [cuda_ms((kb, fn)[i], 10, sync, queued=True)
+             for i in (0, 1, 1, 0)]
+        res[name]["baseline_ms"] = [t[0], t[3]]
+        line.update(baseline_ms=[t[0], t[3]], kernel_ms_pair=[t[1], t[2]])
+    log(f"kernel {name}: " + json.dumps(line))
     return res
 
 
 def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
                 card, max_fallback):
     """One `large-kmer -i src -f fmt -k K_LARGE` run through the CLI's
-    entry points over the whole corpus: its numbers, the set's size and
-    peak device memory, failing on a kernel of NEED_LARGE not launched,
+    entry points over the whole corpus: its numbers, the set's size, its
+    bucket index (and the time of the corrector's own index build,
+    beside count_s and the corrector's build) and peak device memory,
+    failing on a kernel
+    of NEED_LARGE not launched,
     on more than ``max_fallback`` of the reads on the host (None: not
     held to a limit) or on the output check (the SAMPLE_LARGE sample and
     every host read).  Returns (solid, corrector, instrumentation, launch
@@ -1325,9 +1506,28 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
     args.corrections = args.corrections or list(DEFAULT_CORRECTIONS)
     inst = {}
 
+    build_index = dc.sorted_table
+
+    def timed_index(*a, **kw):
+        """dc.sorted_table, its time kept: the corrector's own build."""
+        sync()
+        t0 = time.perf_counter()
+        st = build_index(*a, **kw)
+        sync()
+        inst["index_build_ms"] = (time.perf_counter() - t0) * 1e3
+        return st
+
     def make(solid):
-        cor = runtime.make_corrector(solid, args.corrections, args.confirm,
-                                     args.max_search, device=device)
+        t0 = time.perf_counter()
+        dc.sorted_table = timed_index
+        try:
+            cor = runtime.make_corrector(solid, args.corrections,
+                                         args.confirm, args.max_search,
+                                         device=device)
+        finally:
+            dc.sorted_table = build_index
+        sync()
+        inst["make_s"] = time.perf_counter() - t0
         inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
         return cor
 
@@ -1336,21 +1536,28 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
                                                               sync)
     peak = torch.cuda.max_memory_allocated()
     check(n == N_READS, f"{label} wrote {n} records, expected {N_READS}")
+    table = corrector.table
     path_report(label, args, solid, corrector, n, count_s, correct_s,
                 launches, inst, n_bases, card, NEED_LARGE,
-                max_fallback=max_fallback)
-    table = corrector.table
+                max_fallback=max_fallback,
+                set_times={"index_build_ms": inst["index_build_ms"]})
     log(f"{label} set and device memory: " + json.dumps({
         "input": f"-i {os.path.basename(src)} -f {fmt}",
-        "kmers": len(solid), "table_entries": table.numel(),
-        "table_bytes": table.numel() * 8, "levels": dc.table_levels(table),
-        "set_build_s": count_s, "max_memory_allocated": peak}))
+        "kmers": len(solid), "table_entries": table.table.numel(),
+        "table_bytes": table.table.numel() * 8,
+        "levels": dc.table_levels(table.table), "buckets": table.buckets,
+        "index_bytes": table.starts.numel() * 4,
+        "bucket_levels": table.bucket_levels,
+        "largest_bucket": int(table.starts.diff().max()),
+        "set_build_s": count_s, "corrector_build_s": inst["make_s"],
+        "max_memory_allocated": peak}))
     oracle_check(f"{label} default chain", out, seqs, args.corrections,
                  solid, corrector.last_host, k=k, sample=SAMPLE_LARGE)
     return solid, corrector, inst, launches
 
 
-def large_k_path(workdir, fa, seqs, n_bases, device, sync, card):
+def large_k_path(workdir, fa, seqs, n_bases, device, sync, card,
+                 baseline=None):
     """The large-k phase at k = K_LARGE, two sets through `large-kmer`
     (large_k_run): the trusted set, the corpus's genome written as FASTA
     (`-f fasta`; its fallback share logged, not held to MAX_FALLBACK: a
@@ -1361,8 +1568,9 @@ def large_k_path(workdir, fa, seqs, n_bases, device, sync, card):
     against their plain versions on its first chunk (K6 at walk_max 248,
     K7 at ms 7, 14 and 15) and its first retry chunk (K6 at walk_max
     2040) and K9 on the first chunk's k-mers against the path's table;
-    then K9 and K1 at k = 31 past the L2 (big_table_checks).  Returns
-    (checks, launch counts of the counted set's path)."""
+    then K9 and K1 at k = 31 past the L2 (big_table_checks); with
+    ``baseline``, each beside the other tree's.  Returns (checks, launch
+    counts of the counted set's path)."""
     import torch
 
     from br_tpu_torch.correct import device_codec as dc
@@ -1392,19 +1600,22 @@ def large_k_path(workdir, fa, seqs, n_bases, device, sync, card):
     idxs, starts = corrector._plan(seqs, set(), set())[0]
     first = corrector._chunk_arrays(seqs, idxs, starts)
     checks = kernel_checks(table, first, k, C, MS, device, sync,
-                           plain_reps=0, full=False, walks=[])
+                           plain_reps=0, full=False, walks=[],
+                           baseline=baseline)
     check(bool(inst["retry"]), f"the k={k} path retried no chunk")
     checks.update(kernel_checks(
         table, inst["retry"][0], k, C, MS, device, sync, kind="retry",
         plain_reps=0, full=False,
-        walks=[(WIDE_WALK_MAX, "graph"), (WIDE_WALK_MAX, "gap-size")]))
+        walks=[(WIDE_WALK_MAX, "graph"), (WIDE_WALK_MAX, "gap-size")],
+        baseline=baseline))
     codes = dc.unpack_codes(torch.from_numpy(first[0]).to(device),
                             first[0].shape[0] * 4)
-    checks.update(hash_probe_check(f"hash_probe[k={k},path table]", table,
-                                   dc.rolling_kmers(codes, k), k, sync))
+    checks.update(hash_probe_check(
+        f"hash_probe[k={k},path table]", table, dc.rolling_kmers(codes, k),
+        k, sync, baseline=baseline, index_ms=inst["index_build_ms"]))
     del solid, corrector, table
     torch.cuda.empty_cache()
-    checks.update(big_table_checks(first, device, sync))
+    checks.update(big_table_checks(first, device, sync, baseline))
     return checks, launches
 
 
@@ -1521,7 +1732,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     torch.cuda.empty_cache()
     log(f"phase clock: large k at {time.perf_counter() - T0:.0f} s")
     checks_l, launches_l = large_k_path(workdir, fa, seqs, n_bases, device,
-                                        sync, card)
+                                        sync, card, baseline)
     log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
     checks.update(checks_l)
     entries = []
@@ -1543,7 +1754,9 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
                 "replaces": replaces, "launches": cnt[key],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": "bytes", "library_ms": r.get("library_ms")})
+                "bound_by": "bytes", "library_ms": r.get("library_ms"),
+                **({"pr8_bound_ms": r["pr8_bound_ms"]}
+                   if "pr8_bound_ms" in r else {})})
     return entries
 
 
@@ -1626,11 +1839,12 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CSRC_DIR",
-                    help="also check and time K1-K7 at k = 13 (and the "
-                         "64-bit ones at k = 17) as built from this "
-                         "directory, those whose sources differ from this "
-                         "tree's (the parent commit's csrc: git archive "
-                         "<commit> br_tpu_torch/csrc)")
+                    help="also check and time K1-K7 at k = 13 (the 64-bit "
+                         "ones at k = 17, the sorted-table ones and K9 at "
+                         "k = 21 and on the 1 GiB table) as built from "
+                         "this directory, those whose sources differ from "
+                         "this tree's (the parent commit's csrc: git "
+                         "archive <commit> br_tpu_torch/csrc)")
     opts = ap.parse_args()
     try:
         import torch

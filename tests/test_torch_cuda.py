@@ -624,13 +624,16 @@ def test_solid_pack_clear(dev, clear):
 
 def test_checked_build_traps_nothing_in_greedy(dev):
     """Every greedy card test here (K7 at k <= 15, and at k = 17 with ms
-    7, 14 and 15, beside K1 and K3), run again in a process whose kernels
-    are the checked build (BR_BOUNDS_CHECK=1: each traceback-table index
-    and each table probe checked, a trap at the first out of range)."""
+    7, 14 and 15, beside K1 and K3) and every sorted-table card test (K9
+    and the _h kernels through the bucket index, one-bucket indexes
+    among them), run again in a process whose kernels are the checked
+    build (BR_BOUNDS_CHECK=1: each traceback-table index, each bitfield
+    word, each bucket-index and sorted-table read checked, a trap at the
+    first out of range)."""
     root = Path(__file__).resolve().parent.parent
     r = subprocess.run(
         [sys.executable, "-m", "pytest", __file__, "-q", "-p",
-         "no:cacheprovider", "-k", "greedy and not checked"],
+         "no:cacheprovider", "-k", "(greedy or hash) and not checked"],
         env=dict(os.environ, BR_BOUNDS_CHECK="1"), cwd=root,
         capture_output=True, text=True, timeout=900)
     out = r.stdout[-3000:] + r.stderr[-2000:]
@@ -674,6 +677,15 @@ def _hash_case(k):
     return cases, table
 
 
+def _sorted(dev, k, bits=None):
+    """The case genome's SortedTable on the card: the default index, or
+    one of ``bits`` bits (0: every entry in one bucket, the worst
+    skew)."""
+    _cases, table_np = _hash_case(k)
+    table = torch.from_numpy(table_np.view(np.int64)).to(dev)
+    return dc.sorted_table(table, k, bits)
+
+
 @pytest.mark.parametrize("name", ["mixed", "long_walk"])
 @pytest.mark.parametrize("strategy", H_SITES)
 @pytest.mark.parametrize("k", HASH_KS)
@@ -682,8 +694,24 @@ def test_hash_kernels_match_plain(dev, k, strategy, name):
     2040, K7 at ms 7 and 15: 40 and 47 DP columns at k = 31) against
     their plain versions through the sorted table, and K3 on their
     records."""
-    cases, table_np = _hash_case(k)
-    table = torch.from_numpy(table_np.view(np.int64)).to(dev)
+    _check_hash_kernels(dev, k, strategy, name, _sorted(dev, k))
+
+
+@pytest.mark.parametrize("name", ["mixed", "long_walk"])
+@pytest.mark.parametrize("strategy", H_SITES)
+def test_hash_kernels_one_bucket(dev, strategy, name):
+    """The _h kernels at k = 21 against their plain versions through an
+    index of one bucket (every entry in it, bucket_levels the table's
+    levels + 1: the worst skew, every probe a search of the whole
+    table)."""
+    table = _sorted(dev, 21, bits=0)
+    assert table.buckets == 1
+    assert table.bucket_levels == int(table.starts[1]).bit_length()
+    _check_hash_kernels(dev, 21, strategy, name, table)
+
+
+def _check_hash_kernels(dev, k, strategy, name, table):
+    cases, _table_np = _hash_case(k)
     _pieces, codes, rstart, rlen = cases[name]
     codes = torch.from_numpy(codes).to(dev)
     rs = torch.from_numpy(rstart).to(dev)
@@ -731,8 +759,8 @@ def test_hash_kernels_match_plain(dev, k, strategy, name):
 def test_hash_one_two_any_confirm(dev, strategy, any_c):
     """K2 and K5 at k = 31 with confirm counts whose rounds pass the
     first code window (two words wide for the sorted table)."""
-    cases, table_np = _hash_case(31)
-    table = torch.from_numpy(table_np.view(np.int64)).to(dev)
+    cases, _table_np = _hash_case(31)
+    table = _sorted(dev, 31)
     _p, codes, rstart, rlen = cases["mixed"]
     codes = torch.from_numpy(codes).to(dev)
     rs = torch.from_numpy(rstart).to(dev)
@@ -747,8 +775,8 @@ def test_hash_one_two_any_confirm(dev, strategy, any_c):
 
 def _random_sorted_table(dev, k, n, seed):
     """(table, its k-mers): a sorted table of at most n - n // 8 distinct
-    random canonical k-mers and at least n // 8 sentinels (1 << min(2k+1, 63)),
-    int64 bits, drawn on the card."""
+    random canonical k-mers and at least n // 8 sentinels (1 << min(2k+1,
+    63)), int64 bits, drawn on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
     hi = 1 << (2 * k)
     vals = torch.randint(0, hi, (n - n // 8,), device=dev, generator=g,
@@ -761,29 +789,33 @@ def _random_sorted_table(dev, k, n, seed):
     return torch.cat([vals, pad]), vals
 
 
+@pytest.mark.parametrize("bits", [None, 0])
 @pytest.mark.parametrize("k", [19, 21, 31])
-def test_hash_probe_matches_plain_and_searchsorted(dev, k):
+def test_hash_probe_matches_plain_and_searchsorted(dev, k, bits):
     """K9 against its plain version and torch.searchsorted on a 2^20
-    table: k-mers of the table (canonical and not), below its first and
-    above its last entry, random ones; at k = 31 with bits 60-61 set,
-    against the sentinel 1 << 63."""
+    table, through its default index and through one of one bucket (the
+    worst skew): k-mers of the table (canonical and not), below its first
+    and above its last entry, random ones; at k = 31 with bits 60-61 set,
+    against the sentinel 1 << 63, and the sentinel itself."""
     from br_tpu_torch.correct.hash_probe import hash_probe
 
     table, vals = _random_sorted_table(dev, k, 1 << 20, k)
+    st = dc.sorted_table(table, k, bits)
+    assert st.buckets == (1 << 19 if bits is None else 1)
     real = vals[: 1 << 16]
     rc = dc.revcomp64(real, k)
     g = torch.Generator(device=dev).manual_seed(100 + k)
     rnd = torch.randint(0, 1 << (2 * k), (1 << 16,), device=dev,
                         generator=g, dtype=torch.int64)
     edge = torch.tensor([0, int(real.min()), int(real.max()),
-                         (1 << (2 * k)) - 1, 3 << (2 * k - 2)],
-                        device=dev, dtype=torch.int64)
+                         (1 << (2 * k)) - 1, 3 << (2 * k - 2), -(1 << 63),
+                         1 << (2 * k)], device=dev, dtype=torch.int64)
     kmers = torch.cat([real, rc, rnd, edge])
     before = kernels.LAUNCHES["hash_probe"]
-    got = hash_probe(table, kmers, k)
+    got = hash_probe(st, kmers, k)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["hash_probe"] == before + 1
-    want = dc.make_hash_probe(table, k)(kmers)
+    want = dc.make_hash_probe(st, k)(kmers)
     assert torch.equal(got, want)
     # the library: searchsorted on the table with the sentinel mapped to
     # INT64_MAX (torch compares int64 as signed)

@@ -54,6 +54,20 @@ def _csv(genome, k, step=7):
     return "kmer,count\n" + "".join(f"{r},3\n" for r in rows)
 
 
+def _edge_keys(k, table):
+    """Keys past the last real entry of a padded table, the k = 31
+    sentinel 1 << 63, the all-ones word, and k-mers with bits set past 2k
+    (uint64)."""
+    rng = np.random.default_rng(7 * k)
+    real = table[table < (np.uint64(1) << np.uint64(2 * k))]
+    top = int(real.max()) if real.size else 0
+    return np.concatenate([
+        np.array([top + 1, (1 << (2 * k)) - 1, 1 << 63, (1 << 64) - 1,
+                  1 << (2 * k), 1 << min(2 * k + 1, 63)], np.uint64),
+        rng.integers(0, 1 << 62, 200, dtype=np.uint64)
+        | np.uint64(1 << (2 * k))])
+
+
 def _same_sets(mine, theirs, k, seed):
     assert len(mine) == len(theirs)
     assert np.array_equal(mine.sorted_table(), theirs.sorted_table())
@@ -61,25 +75,32 @@ def _same_sets(mine, theirs, k, seed):
     rng = np.random.default_rng(seed)
     km = rng.integers(0, 1 << (2 * k), 2000, dtype=np.uint64)
     km[:500] = theirs.sorted_table()[:500] if len(theirs) >= 500 else 0
+    km = np.concatenate([km, _edge_keys(k, theirs.device_table())])
     assert np.array_equal(mine.get_many(km), theirs.get_many(km))
     # get: the entries, random k-mers, their reverse complements (of
-    # either popcount parity) and k-mers with bits set past 2k
+    # either popcount parity), k-mers with bits set past 2k and the edge
+    # keys; and the device table's plain probe on all of them
     xs = km.tolist()
-    xs += [codec.revcomp(x, k) for x in xs]
+    xs += [codec.revcomp(x, k) for x in xs[:2000]]
     xs += [x | 1 << (2 * k + 1) for x in xs[:100]]
-    assert [mine.get(x) for x in xs] == [theirs.get(x) for x in xs]
+    got = [mine.get(x) for x in xs]
+    assert got == [theirs.get(x) for x in xs]
+    probe = dc.make_hash_probe(mine.device_table_tensor("cpu"), k)
+    keys = torch.from_numpy(np.array(xs, np.uint64).view(np.int64))
+    assert probe(keys).tolist() == got
 
 
 @pytest.mark.parametrize("k", SET_KS)
 def test_hash_set_matches_br_tpu(k):
     """from_sequences and from_csv at large k: the same sorted and padded
-    tables and the same membership as br_tpu's HashSet; the device table
-    carries those bits."""
+    tables and the same membership as br_tpu's HashSet (get and get_many
+    on the edge keys too, as the device table's probe reads them); the
+    device table carries those bits."""
     g = _genome(k)
     mine = HashSet.from_sequences([g, g[:100], b"ACG"], k)
     theirs = JHashSet.from_sequences([g, g[:100], b"ACG"], k)
     _same_sets(mine, theirs, k, k)
-    t = mine.device_table_tensor("cpu")
+    t = mine.device_table_tensor("cpu").table
     assert t.dtype == torch.int64
     assert np.array_equal(t.numpy().view(np.uint64), theirs.device_table())
     text = _csv(g, k)
@@ -103,38 +124,95 @@ def test_hash_set_empty_one_entry_and_updates():
 
 def _probe_inputs(k, table):
     """K-mers below the first entry, above the last, equal to every entry
-    (canonical and reverse-complemented), random ones, and at k = 31
-    ones with bits 60-61 set."""
+    (canonical and reverse-complemented) and one past each, random ones,
+    and the edge keys (_edge_keys)."""
     rng = np.random.default_rng(k)
     real = table[table < (np.uint64(1) << np.uint64(2 * k))]
     from br_tpu_torch import codec
 
-    kms = [real, codec.revcomp_np(real, k),
+    kms = [real, codec.revcomp_np(real, k), real + np.uint64(1),
+           real - np.uint64(1),
            rng.integers(0, 1 << (2 * k), 3000, dtype=np.uint64),
-           np.array([0, 1, (1 << (2 * k)) - 1], np.uint64)]
+           np.array([0, 1, (1 << (2 * k)) - 1], np.uint64),
+           _edge_keys(k, table)]
     if k == 31:
         kms.append(rng.integers(0, 1 << 60, 500, dtype=np.uint64)
                    | np.uint64(3 << 60))
     return np.concatenate(kms)
 
 
-@pytest.mark.parametrize("k", [20, 31])
-def test_hash_probe_matches_br_tpu(k):
-    """The plain sorted-table probe (and K9's wrapper on the CPU) equals
-    br_tpu's make_hash_probe, JAX on the CPU, on a sentinel-padded table
-    (at k = 31 the sentinel is 1 << 63)."""
-    g = _genome(100 + k, 2000)
-    table = JHashSet.from_sequences([g], k).device_table()
-    assert table.size > len(JHashSet.from_sequences([g], k))
+def _even(x):
+    """The uint64 k-mers of even popcount (their own canonical form)."""
+    return x[(codec.popcount_np(x) & np.uint64(1)) == 0]
+
+
+def _probe_set(k, case):
+    """br_tpu's HashSet of a probe case at k: ``genome`` the k-mers of a
+    random genome; ``empty``; ``one`` entry; ``one_bucket``, 300 entries
+    sharing their top 20 bits (every index the tables take has at most
+    20 bits here: all in one bucket, the worst skew); ``edges``, in each
+    of the 64 buckets of a 128-entry table its first and last canonical
+    k-mer."""
+    rng = np.random.default_rng(200 + k)
+    if case == "genome":
+        return JHashSet.from_sequences([_genome(100 + k, 2000)], k)
+    if case == "empty":
+        return JHashSet(k)
+    if case == "one":
+        return JHashSet(k, [int(_even(rng.integers(
+            0, 1 << (2 * k), 8, dtype=np.uint64))[0])])
+    if case == "one_bucket":
+        low = rng.choice(1 << (2 * k - 20), 1200, replace=False)
+        x = _even((np.uint64(0xABCDE) << np.uint64(2 * k - 20))
+                  | low.astype(np.uint64))[:300]
+        return JHashSet(k, x.tolist())
+    shift = 2 * k - 6   # a 128-entry table: levels 7, b = 6
+    edges = []
+    for i in range(64):
+        lo = np.arange(i << shift, (i << shift) + 8, dtype=np.uint64)
+        hi = np.arange(((i + 1) << shift) - 8, (i + 1) << shift,
+                       dtype=np.uint64)
+        edges += [_even(lo)[0], _even(hi)[-1]]
+    return JHashSet(k, [int(x) for x in edges])
+
+
+PROBE_CASES = ["genome", "empty", "one", "one_bucket", "edges"]
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+@pytest.mark.parametrize("k", [19, 20, 21, 31])
+def test_hash_probe_matches_br_tpu(k, case):
+    """The plain bucketed probe (and K9's wrapper on the CPU) equals
+    br_tpu's make_hash_probe, JAX on the CPU (a binary search of the
+    whole table), on the port's SortedTable of the same sentinel-padded
+    table (at k = 31 the sentinel is 1 << 63): a genome's set, the empty
+    set, one entry, every entry in one bucket and entries at bucket
+    edges.  The bare table, without its index, is refused."""
+    theirs = _probe_set(k, case)
+    table = theirs.device_table()
+    mine = HashSet(k, theirs.sorted_table().tolist())
+    st = mine.device_table_tensor("cpu")
+    assert np.array_equal(st.table.numpy().view(np.uint64), table)
+    if case == "one_bucket":
+        assert int((st.starts[1:] > st.starts[:-1]).sum()) == 1
+        assert st.bucket_levels == 9
+    if case == "edges":
+        assert st.buckets == 64 and bool((st.starts.diff() == 2).all())
     km = _probe_inputs(k, table)
     want = np.asarray(jdc.make_hash_probe(jnp.asarray(table), k)(
         jnp.asarray(km)))
-    t = torch.from_numpy(table.view(np.int64))
     kt = torch.from_numpy(km.view(np.int64))
-    got = dc.make_hash_probe(t, k)(kt).numpy()
-    assert np.array_equal(got, want) and want.any() and not want.all()
-    assert np.array_equal(hash_probe(t, kt, k).numpy(), want)
-    assert np.array_equal(dc.make_probe(t, k)(kt).numpy(), want)
+    got = dc.make_hash_probe(st, k)(kt).numpy()
+    assert np.array_equal(got, want) and not want.all()
+    assert want.any() == (case != "empty")
+    assert np.array_equal(hash_probe(st, kt, k).numpy(), want)
+    assert np.array_equal(dc.make_probe(st, k)(kt).numpy(), want)
+    assert np.array_equal(mine.get_many(km), want)
+    bare = st.table
+    for fn in (lambda: hash_probe(bare, kt, k),
+               lambda: dc.make_probe(bare, k)):
+        with pytest.raises(TypeError, match="bucket index"):
+            fn()
 
 
 def test_hash_of_solid_is_the_solid_set():
