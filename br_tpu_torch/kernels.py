@@ -60,9 +60,9 @@ KERNELS = {
                    + "iiiiiiii" + "pppppp" + "p"),
     "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "ppppppp"
                      + "iiiiii" + "pppppp" + "p"),
-    "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "p"
-                    + "p"),
-    "solid_pack": ("solid_build.cu", "br_solid_pack", "plipi" + "p"),
+    "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "ii"
+                    + "p" + "p"),
+    "solid_pack": ("solid_build.cu", "br_solid_pack", "pliipi" + "p"),
     "hash_probe": ("hash_probe.cu", "br_hash_probe", "ppiii" + "pli" + "p"
                    + "p"),
 }

@@ -13,20 +13,28 @@ the abundance ``a``: ``min(count, 255) > a``, bit for bit the host
 empty set; br_tpu's exact-count build differs there, device_build.py:
 14-17, and is not copied).
 
-On the card the canonical half-space (2^(2k-1) u32 counts: 128 MiB at
-k = 13, 32 GiB at k = 17) is swept in partitions of at most
-``max_count_bytes``; for each, K8a ``count_kmers`` adds every stored
-batch's k-mers that fall in it, then K8b ``threshold_pack`` writes its
-bitfield words and clears the counts for the next partition (the last
-partition's are left as they are).  Batches are kept packed on the
-device (a quarter byte a base), so a caller can stream records through
-``SolidBuilder.add`` without holding a file.
+For 0 <= a <= 254 that function reads only ``min(count, a + 1)``, so a
+k-mer's counter is ``counter_bits(a)`` = w bits that saturate at a + 1
+(1 bit at a = 0, 2 at a = 1 and 2, 4 at 3..14, 8 at 15..254), 32 / w to
+an int32 word; a < 0 (every bit set) and a >= 255 (none) count nothing.
+On the card the canonical half-space (2^(2k-1) counters: 8 MiB at k = 13
+and 2 GiB at k = 17 for a = 2) is swept in partitions whose counters
+take at most ``max_count_bytes``; for each, K8a ``count_kmers`` adds every
+stored batch's k-mers that fall in it, then K8b ``threshold_pack`` writes
+its bitfield words and clears the counters for the next partition (the
+last partition's are left as they are).  At w = 1 the counters are the
+bitfield: K8a counts into it and K8b is not launched.  Under the default
+cap one partition covers k <= 15 for any a and k = 17 for a <= 14 (3 GiB
+of device memory at a = 2 with the bitfield); k = 17 at a >= 15 takes
+two.  Batches are kept packed on the device (a quarter byte a base), so
+a caller can stream records through ``SolidBuilder.add`` without holding
+a file.
 
 ``count_kmers`` and ``threshold_pack`` launch their kernels for CUDA
 tensors and run their plain versions for CPU tensors.  The plain version
 of the whole build, ``solid_words_plain`` (``torch.unique`` with counts),
 is what ``SolidBuilder.finish`` runs for a builder on the CPU: a dense
-sweep of 2^33 counts would not fit a test's memory at k = 17.
+sweep of 2^33 counters would not fit a test's memory at k = 17.
 """
 
 from __future__ import annotations
@@ -40,11 +48,10 @@ from br_tpu_torch import kernels
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.set.solid import SolidSet
 
-#: the count partition's default byte cap on the card (8 partitions of
-#: 2^30 counts at k = 17; one at k <= 15)
+#: a partition's default cap on the card, in bytes of its counters (one
+#: partition of 2^33 2-bit counters at k = 17, a = 2)
 DEFAULT_MAX_COUNT_BYTES = 4 << 30
-#: counts a group of K8b (a warp's 16-byte loads): partitions are a
-#: multiple of it
+#: counters a partition is a multiple of (4 bitfield words)
 GROUP = 128
 #: bases of one packed batch of ``build_set``'s stream
 BATCH_BASES = 1 << 26
@@ -85,19 +92,35 @@ def _check_packed(p: Packed, k: int) -> None:
                          "n_bases")
 
 
-def count_kmers(p: Packed, k: int, pbase: int, counts) -> None:
-    """K8a: add to ``counts[i]`` (int32 holding u32) the occurrences of
-    canonical index ``pbase + i`` at the valid positions of ``p``."""
+def counter_bits(a: int) -> int:
+    """w, the bits of a counter that saturates at ``a + 1``: the narrowest
+    of 1, 2, 4 and 8 with 2^w - 1 >= a + 1 (0 <= a <= 254)."""
+    if not 0 <= a <= 254:
+        raise ValueError(f"abundance {a} needs no counters (0 to 254 do)")
+    return next(w for w in (1, 2, 4, 8) if (1 << w) - 1 >= a + 1)
+
+
+def _int32(x):
+    """int64 values of 0 .. 2^32 - 1 as the int32 of the same bits."""
+    return ((x ^ 0x80000000) - 0x80000000).int()
+
+
+def count_kmers(p: Packed, k: int, pbase: int, a: int, counts) -> None:
+    """K8a: add to counter ``i`` of ``counts`` (int32 words of 32 / w
+    counters of w = ``counter_bits(a)`` bits, LSB first) the occurrences
+    of canonical index ``pbase + i`` at the valid positions of ``p``,
+    each counter saturating at ``a + 1``."""
     _check_packed(p, k)
+    w = counter_bits(a)
     kernels.check(counts, "counts", torch.int32, p.codes.device)
     if kernels.on_cuda(counts):
         if p.starts.shape[0]:
             kernels.launch(kernels.variant("solid_count", k), p.codes,
                            p.codes.shape[0] // 4, p.starts,
                            p.starts.shape[0], p.n_bases, k, pbase,
-                           counts.shape[0], counts)
+                           counts.shape[0] * 32 // w, w, a, counts)
         return
-    count_kmers_plain(p, k, pbase, counts)
+    count_kmers_plain(p, k, pbase, a, counts)
 
 
 def canonical_index(p: Packed, k: int):
@@ -114,41 +137,77 @@ def canonical_index(p: Packed, k: int):
     return dc.canonical_any(km[valid], k) >> 1
 
 
-def count_kmers_plain(p: Packed, k: int, pbase: int, counts) -> None:
-    """The same function as K8a in plain PyTorch ops."""
+def count_kmers_plain(p: Packed, k: int, pbase: int, a: int,
+                      counts) -> None:
+    """The same function as K8a in plain PyTorch ops: the occurrences by
+    ``torch.unique``, each touched counter raised to ``min(counter +
+    occurrences, a + 1)``."""
+    w = counter_bits(a)
     local = canonical_index(p, k) - pbase
-    local = local[(local >= 0) & (local < counts.shape[0])]
+    local = local[(local >= 0) & (local < counts.shape[0] * 32 // w)]
     u, c = torch.unique(local, return_counts=True)
-    counts.index_add_(0, u, c.int())
+    word, sh = (u * w) >> 5, (u * w) & 31
+    uw, inv = torch.unique(word, return_inverse=True)
+    old = counts[uw].long() & 0xFFFFFFFF
+    cur = (old[inv] >> sh) & ((1 << w) - 1)
+    # distinct counters of a word are distinct bits: their steps add
+    counts[uw] = _int32(old.index_add_(
+        0, inv, ((cur + c).clamp(max=a + 1) - cur) << sh))
 
 
 def threshold_pack(counts, a: int, words, clear: bool = True) -> None:
-    """K8b: ``words`` (int32, one bit a count, LSB first) = min(count,
-    255) > a; with ``clear``, ``counts`` is zeroed."""
+    """K8b: ``words`` (int32, one bit a counter, LSB first) = counter >=
+    a + 1 (``min(count, 255) > a``) of the w-bit counters ``counts``
+    (w = ``counter_bits(a)``, 2 to 8: at a = 0 the 1-bit counters are
+    the bitfield); with ``clear``, ``counts`` is zeroed."""
     dev = counts.device
+    w = counter_bits(a)
+    if w == 1:
+        raise ValueError("a = 0 packs nothing: its counters are the "
+                         "bitfield")
     kernels.check(counts, "counts", torch.int32, dev)
-    kernels.check(words, "words", torch.int32, dev, counts.shape[0] // 32)
-    if counts.shape[0] % GROUP:
-        raise ValueError(f"counts must be a multiple of {GROUP}")
-    a = max(-1, min(int(a), 256))
+    if counts.shape[0] % (GROUP * w // 32):
+        raise ValueError(f"counts must hold a multiple of {GROUP} counters")
+    kernels.check(words, "words", torch.int32, dev, counts.shape[0] // w)
     if kernels.on_cuda(counts):
-        kernels.launch("solid_pack", counts, counts.shape[0] // GROUP, a,
-                       words, int(clear))
+        if counts.data_ptr() % 16:
+            raise ValueError("counts must be 16-byte aligned")
+        kernels.launch("solid_pack", counts, words.shape[0], w, a, words,
+                       int(clear))
         return
     threshold_pack_plain(counts, a, words, clear)
 
 
+def counter_fields(counts, w: int):
+    """The w-bit counters of int32 words, in order, as uint8."""
+    b = counts.view(torch.uint8)
+    if w == 8:
+        return b
+    sh = torch.arange(0, 8, w, dtype=torch.uint8, device=counts.device)
+    return ((b[:, None] >> sh) & ((1 << w) - 1)).reshape(-1)
+
+
 def pack_bits(solid):
     """(32 n,) bool -> (n,) int32 words, LSB first."""
-    sh = torch.arange(32, dtype=torch.int64, device=solid.device)
-    w = (solid.reshape(-1, 32).long() << sh).sum(1)
-    return ((w ^ 0x80000000) - 0x80000000).int()
+    sh = torch.arange(8, dtype=torch.uint8, device=solid.device)
+    b = (solid.reshape(-1, 8).to(torch.uint8) << sh).sum(1,
+                                                          dtype=torch.uint8)
+    return b.view(torch.int32)
+
+
+#: counter words the plain pack takes at a time (its uint8 fields, at
+#: most 128 MiB)
+_PLAIN_WORDS = 1 << 22
 
 
 def threshold_pack_plain(counts, a: int, words, clear: bool = True) -> None:
-    """The same function as K8b in plain PyTorch ops."""
-    c = (counts.long() & 0xFFFFFFFF).clamp(max=255)
-    words.copy_(pack_bits(c > a))
+    """The same function as K8b in plain PyTorch ops, a slice of counter
+    words at a time."""
+    w = counter_bits(a)
+    for i in range(0, counts.shape[0], _PLAIN_WORDS):
+        part = counts[i:i + _PLAIN_WORDS]
+        words[i // w:(i + part.shape[0]) // w] = pack_bits(
+            counter_fields(part, w) > a)
     if clear:
         counts.zero_()
 
@@ -166,35 +225,51 @@ def _tail_mask(words, k: int):
     return words
 
 
-def partition_size(k: int, max_count_bytes: int) -> int:
-    """Counts per partition: a power of two, at most ``max_count_bytes``
-    of u32 counts (at least one group), no more than the half-space
-    rounded up to a group."""
+def partition_size(k: int, w: int, max_count_bytes: int) -> int:
+    """Counters per partition: a power of two whose w-bit counters take
+    at most ``max_count_bytes`` (at least ``GROUP``), no more than the
+    half-space rounded up to a group."""
     half = 1 << (2 * k - 1)
-    cap = max(GROUP, max_count_bytes // 4)
+    cap = max(GROUP, max_count_bytes * 8 // w)
     psize = 1 << (cap.bit_length() - 1)
     return min(psize, max(GROUP, half))
 
 
+def _abundance(a) -> int:
+    """``a`` clamped to -1 .. 255: below 0 every k-mer is solid, from 255
+    none (the u8 count's limit)."""
+    return max(-1, min(int(a), 255))
+
+
 def build_words(batches, k: int, abundance: int,
-                max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES):
+                max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES,
+                device=None):
     """The partitioned sweep over the half-space through K8a and K8b (on
-    the batches' device: the kernels on the card, their plain versions
-    on the CPU).  Returns the bitfield as int32 words."""
+    the batches' device, or ``device``: the kernels on the card, their
+    plain versions on the CPU).  Returns the bitfield as int32 words."""
     dc.check_k(k)
+    dev = device or batches[0].codes.device
+    a = _abundance(abundance)
+    if not 0 <= a <= 254:   # nothing to count
+        words = torch.full((half_words(k),), -1 if a < 0 else 0,
+                           dtype=torch.int32, device=dev)
+        return _tail_mask(words, k)
+    w = counter_bits(a)
     half = 1 << (2 * k - 1)
-    dev = batches[0].codes.device
-    psize = partition_size(k, max_count_bytes)
+    psize = partition_size(k, w, max_count_bytes)
     nparts = -(-half // psize)
-    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
-    words = torch.empty(nparts * psize // 32, dtype=torch.int32, device=dev)
+    # at w = 1 the counters are the bitfield's words
+    words = (torch.zeros if w == 1 else torch.empty)(
+        nparts * psize // 32, dtype=torch.int32, device=dev)
+    counts = None if w == 1 else torch.zeros(psize * w // 32,
+                                             dtype=torch.int32, device=dev)
     for part in range(nparts):
+        out = words[part * psize // 32:(part + 1) * psize // 32]
         for p in batches:
-            count_kmers(p, k, part * psize, counts)
-        # the last partition's counts are read by nothing after it
-        threshold_pack(counts, abundance,
-                       words[part * psize // 32:(part + 1) * psize // 32],
-                       clear=part + 1 < nparts)
+            count_kmers(p, k, part * psize, a, out if w == 1 else counts)
+        if w > 1:
+            # the last partition's counters are read by nothing after it
+            threshold_pack(counts, a, out, clear=part + 1 < nparts)
     return _tail_mask(words[:half_words(k)], k)
 
 
@@ -207,7 +282,7 @@ def solid_words_plain(batches, k: int, abundance: int,
     dc.check_k(k)
     dev = device or (batches[0].codes.device if batches else "cpu")
     words = torch.zeros(half_words(k), dtype=torch.int32, device=dev)
-    a = max(-1, min(int(abundance), 256))
+    a = _abundance(abundance)
     if a < 0:
         return _tail_mask(words.fill_(-1), k)
     idx = [canonical_index(p, k) for p in batches]
@@ -245,9 +320,9 @@ class SolidBuilder:
     def finish(self, abundance: int):
         """The bitfield of ``min(count, 255) > abundance`` as int32 words
         on the device."""
-        if self.device.type == "cuda" and self.batches:
+        if self.device.type == "cuda":
             return build_words(self.batches, self.k, abundance,
-                               self.max_count_bytes)
+                               self.max_count_bytes, self.device)
         return solid_words_plain(self.batches, self.k, abundance,
                                  self.device)
 

@@ -38,11 +38,20 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    commit's), built from there and called through this tree's wrappers,
    are checked too and timed beside this tree's, by the same method, in
    the order baseline, this tree, this tree, baseline; then K8 (its count
-   and pack kernels) on the whole corpus against their plain versions,
-   with its bound and torch.unique's time on the same canonical k-mers;
+   and pack kernels, 2-bit counters at a = 2) on the whole corpus
+   against their plain versions, with each kernel's bound and
+   torch.unique's time on the same canonical k-mers, and the whole build
+   (the counters' zeroing, K8a, K8b) timed against the function's bound
+   (the packed reads read once, the bitfield written once), with its
+   peak device memory (with --baseline, the other tree's K8 built and
+   timed beside it; a K8 with u32 counts, as commit f531983's, through
+   its own entry points and sweep: k8_u32_build; and K8a and the build
+   at each a whose counters take one partition: k8_sweep); then K8's build
+   against its plain build at every a of ABUNDANCES;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
-   CLI's entry points (build_set, whose K8 count is count_s, then
+   CLI's entry points (build_set, whose K8 count is count_s, with K8's
+   device ms, the reads' packing and the FASTA read beside it, then
    make_corrector, run_correction) with every launch count set to 0 just
    before; the passes' cap counters by reason and strategy; the host
    engine's seconds (host_oracle_s: the native engine on the reads the
@@ -68,12 +77,11 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    launch counts, fallback limit and oracle check;
 10. k = 17 (k17_path): K8 at k = 17 against its plain build on the first
    200 reads (set bits compared on the card), and K8's count and pack
-   kernels against their plain versions on the whole corpus (the first
-   of the build's 8 partitions, the pack timed clearing, as 7 of the
-   build's 8 launches are, and leaving, as its last); the default chain at
+   kernels and its whole build on the whole corpus as in 4 (one
+   partition of 2^33 2-bit counters, 2 GiB); the default chain at
    k = 17 through the CLI's entry points (`fasta -k 17 -a 2`: the 1 GiB
-   set built by K8 over the whole corpus in partitions of 2^30 counts,
-   then the whole corpus corrected), with count_s, correct_s, reads/s,
+   set built by K8 over the whole corpus, then the whole corpus
+   corrected), with count_s (and K8's share), correct_s, reads/s,
    rest_s, fallbacks, wide retries and the peak device memory, failing
    on a kernel not launched or more than 5 % fallbacks; the 64-bit K1,
    K2, K5, K6 (both modes, walk_max 248 and 2040) and K7 (ms 7, and 14
@@ -103,8 +111,7 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    and 15) and its first retry chunk (K6 at walk_max 2040), and K9
    (hash_probe) on the first chunk's k-mers against its plain version
    and torch.searchsorted, each timed as in 4 (with --baseline beside the
-   other tree's, whose sorted-table entry points may take the
-   whole-table search's levels: parent_args, and K9 also through bucket
+   other tree's, and K9 also through bucket
    indexes of b - 2 to b + 2 bits), with the index's statistics, the
    probes' dependent loads and the corrector's index build's time; then
    K9 and
@@ -214,7 +221,7 @@ def toolchain():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; triton: {triton_ok}")
 
 
-def cuda_ms(fn, reps, sync, warm=True, queued=False):
+def cuda_ms(fn, reps, sync, warm=True, queued=False, setup=None):
     """Mean milliseconds per call, by CUDA events around `reps` calls,
     after one warm call unless the caller made it.
 
@@ -225,35 +232,51 @@ def cuda_ms(fn, reps, sync, warm=True, queued=False):
     behind a spin kernel long enough to cover their launch, so the events
     time the device's work back to back: a run in which the device
     reached the first event before the last call was queued is repeated
-    behind a spin four times as long."""
+    behind a spin four times as long.  With ``setup`` (queued only), it
+    is queued before each call, outside the call's own pair of events
+    (a count timed from zeroed counters): the mean of those spans."""
     import torch
 
     if warm:
+        if setup:
+            setup()
         fn()
     sync()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    n_ev = reps if setup else 1
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n_ev)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n_ev)]
     cycles = 0
     if queued:
         t0 = time.perf_counter()
+        if setup:
+            setup()
         fn()
         cycles = int(2e9 * max(1e-3, 2 * reps * (time.perf_counter() - t0)))
         sync()
     for _ in range(5):
         if cycles:
             torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
+        if not setup:
+            starts[0].record()
+        for r in range(reps):
+            if setup:
+                setup()
+                starts[r].record()
             fn()
-        end.record()
-        late = cycles and start.query()
+            if setup:
+                ends[r].record()
+        if not setup:
+            ends[0].record()
+        late = cycles and starts[0].query()
         sync()
         if not late:
             break
         cycles *= 4
     check(not late, "the host could not queue the timed calls ahead of "
                     "the device")
-    return start.elapsed_time(end) / reps
+    if setup:
+        return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / reps
+    return starts[0].elapsed_time(ends[0]) / reps
 
 
 def max_abs_err(a, b):
@@ -317,28 +340,47 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
     return visited, hi - lo, cum[hi] - cum[lo]
 
 
-def parent_sigs(kernels):
-    """The argument letters of a parent's sorted-table entry points that
-    take the whole-table search's ``levels`` (commit 1c24d6b's csrc: an
-    int before the stream, K9's after its table) in place of the bucket
-    index."""
-    sigs = {f"{n}_h": kernels.KERNELS[n][2][:-1] + "ip"
-            for n in kernels.HASHED}
-    sigs["hash_probe"] = "pi" + "pli" + "p" + "p"
-    return sigs
+#: the argument letters of K8's entry points in a tree whose counts are
+#: u32 (commit f531983's csrc: no counter width or abundance in the
+#: count, the pack taking groups of 128 counts and a)
+K8_U32_SIGS = {"solid_count": "plpilill" + "p" + "p",
+               "solid_count64": "plpilill" + "p" + "p",
+               "solid_pack": "plipi" + "p"}
 
 
-def parent_args(name, args):
-    """The launch arguments of those entry points (parent_sigs) from this
-    tree's (the bucket index, kernels.SORTED_ARGS: offsets, entry count,
-    shift, bucket_levels)."""
-    if name == "hash_probe":
-        table, _starts, n, _shift, _levels, *rest = args
-        return (table, max(0, (n - 1).bit_length()), *rest)
-    if name.endswith("_h"):
-        *head, _starts, n, _shift, _levels = args
-        return (*head, max(0, (n - 1).bit_length()))
-    return args
+def k8_u32_build(lib, batches, k, a, max_count_bytes=4 << 30):
+    """The whole K8 build of a tree with u32 counts (``lib``, its entry
+    points bound by K8_U32_SIGS), as that tree's build_words drove it:
+    the half-space in partitions of at most ``max_count_bytes`` of u32
+    counts (8 of 2^30 at k = 17), K8a for each batch, then K8b writing
+    the partition's words and clearing its counts where another
+    partition follows.  Returns the bitfield's int32 words."""
+    import torch
+
+    from br_tpu_torch import kernels
+    from br_tpu_torch.set import device_build as db
+
+    dev = batches[0].codes.device
+    stream = kernels.stream_of(dev)
+    half = 1 << (2 * k - 1)
+    cap = max(128, max_count_bytes // 4)
+    psize = min(1 << (cap.bit_length() - 1), max(128, half))
+    nparts = -(-half // psize)
+    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
+    words = torch.empty(nparts * psize // 32, dtype=torch.int32, device=dev)
+    count = lib.br_solid_count64 if k > 15 else lib.br_solid_count
+    for part in range(nparts):
+        for p in batches:
+            check(count(p.codes.data_ptr(), p.codes.shape[0] // 4,
+                        p.starts.data_ptr(), p.starts.shape[0], p.n_bases,
+                        k, part * psize, psize, counts.data_ptr(),
+                        stream) == 0, "baseline K8a launch failed")
+        out = words[part * psize // 32:]
+        check(lib.br_solid_pack(counts.data_ptr(), psize // 128,
+                                max(-1, min(a, 256)), out.data_ptr(),
+                                int(part + 1 < nparts), stream) == 0,
+              "baseline K8b launch failed")
+    return words[:db.half_words(k)]
 
 
 def load_baseline(csrc):
@@ -346,28 +388,27 @@ def load_baseline(csrc):
     64-bit and sorted-table) as built from another tree's ``csrc`` (the
     parent commit's: ``git archive <commit> br_tpu_torch/csrc``), those
     whose source or headers differ from this tree's, called through this
-    tree's wrappers.  Where the other tree's sorted-table entry points
-    take the whole-table search's ``levels`` (commit 1c24d6b's), their
-    functions in the loaded library are wrapped to launch with it in
-    place of the bucket index (parent_args);
-    every other entry point has this tree's arguments.  Built with this
-    tree's nvcc flags, one nvcc each, all at once; their calls are not
-    counted in kernels.LAUNCHES.  Returns {kernel name: function with the
-    arguments of the kernel's wrapper}."""
+    tree's wrappers; and K8 (``solid_build.cu``), where it differs, as
+    ``"k8"``: {"form", "lib", "build"}, its whole build on a list of
+    batches, k and a.  A K8 with u32 counts (commit f531983's: form
+    ``u32``) is bound with its own entry points (K8_U32_SIGS) and driven
+    as that tree drove it (k8_u32_build); one with this tree's entry
+    points (form ``narrow``) through this tree's build_words.  Built
+    with this tree's nvcc flags, one nvcc each, all at once; their calls
+    are not counted in kernels.LAUNCHES.  Returns {kernel name: function
+    with the arguments of the kernel's wrapper}."""
     from pathlib import Path
 
     from br_tpu_torch import kernels
     from br_tpu_torch.correct import (greedy, hash_probe, probe, reverse,
                                       sites, splice, two, walk)
+    from br_tpu_torch.set import device_build as db
 
     def sources(d, name):
         d = Path(d)
         return [p.read_bytes() for p in (sorted(d.glob("*.cuh"))
                                          + [d / kernels.KERNELS[name][0]])]
 
-    levels_form = b"BR_SORTED_PARAMS" not in (Path(csrc)
-                                              / "common.cuh").read_bytes()
-    old_sigs = parent_sigs(kernels) if levels_form else {}
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     wrappers = {"dense_probe": probe.dense_probe,
                 "one_sites": sites.one_sites, "two_sites": two.two_sites,
@@ -375,7 +416,8 @@ def load_baseline(csrc):
                 "greedy_sites": greedy.greedy_sites,
                 "chain_splice": splice.chain_splice,
                 "reverse_slots": reverse.reverse_slots,
-                "hash_probe": hash_probe.hash_probe}
+                "hash_probe": hash_probe.hash_probe,
+                "solid_count": db.build_words}
     for name in list(wrappers):
         if sources(csrc, name) == sources(kernels.CSRC, name):
             log(f"  baseline {name}: the same source as this tree's, "
@@ -390,25 +432,29 @@ def load_baseline(csrc):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             out)
     libs = {}
+    u32 = False
     for name, (proc, out) in procs.items():
         log_, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
         lib = ctypes.CDLL(str(out))
-        names = ([name] + ([name + "64"] if name in kernels.WIDE else [])
-                 + ([name + "_h"] if name in kernels.HASHED else []))
+        if name == "solid_count":
+            names = ["solid_count", "solid_count64", "solid_pack"]
+            u32 = b"int w, int a" not in (Path(csrc)
+                                         / "solid_build.cu").read_bytes()
+        else:
+            names = ([name] + ([name + "64"] if name in kernels.WIDE
+                               else [])
+                     + ([name + "_h"] if name in kernels.HASHED else []))
         kernels.bind(lib, names)
-        for n in set(names) & set(old_sigs):
-            # the entry point, called with this tree's arguments and the
-            # stream, launches with the parent's
-            fname = kernels.KERNELS[n][1]
-            fn = getattr(lib, fname)
-            fn.argtypes = [kernels._CTYPES[ch] for ch in old_sigs[n]]
-            setattr(lib, fname, lambda *a, fn=fn, n=n: fn(
-                *parent_args(n, a[:-1]), a[-1]))
+        if u32 and name == "solid_count":
+            for n in names:
+                fn = getattr(lib, kernels.KERNELS[n][1])
+                fn.argtypes = [kernels._CTYPES[ch] for ch in K8_U32_SIGS[n]]
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"  ptxas {name} (baseline): {' | '.join(regs)}")
+
     def through(name, wrapper):
         """The wrapper, launching the baseline library."""
         src = kernels.KERNELS[name][0]
@@ -423,7 +469,15 @@ def load_baseline(csrc):
                 kernels.LAUNCHES.update(counts)
         return call
 
-    return {name: through(name, fn) for name, fn in wrappers.items()}
+    out = {name: through(name, fn) for name, fn in wrappers.items()
+           if name != "solid_count"}
+    if "solid_count" in wrappers:
+        lib = libs["solid_count"]
+        out["k8"] = {
+            "form": "u32" if u32 else "narrow", "lib": lib,
+            "build": ((lambda b, k, a: k8_u32_build(lib, b, k, a)) if u32
+                      else through("solid_count", db.build_words))}
+    return out
 
 
 def search_entries(table, cano):
@@ -1031,20 +1085,56 @@ def cap_reasons(kept):
     return out
 
 
-def drive(args, make, sync):
+def drive(args, make, sync, k8_times=None):
     """One path through the CLI's entry points (build_set, then the
     corrector ``make(solid)`` gives, then run_correction), launch counts
-    set to 0 just before and read just after.  Returns the solid set, the
-    corrector, the records written, count_s, correct_s and the launch
-    counts."""
-    from br_tpu_torch import cli, kernels, runtime
+    set to 0 just before and read just after.  With ``k8_times`` (a
+    dict), build_set's parts are timed into it: ``k8_device_ms``, CUDA
+    events around device_build.build_words (K8's whole build, queued as
+    build_set queues it), ``pack_reads_s``, the host's packing of the
+    reads and their copy to the card, and ``read_s``, the rest of
+    count_s (the FASTA read, the Python around it).  Returns the solid
+    set, the corrector, the records written, count_s, correct_s and the
+    launch counts."""
+    import torch
 
+    from br_tpu_torch import cli, kernels, runtime
+    from br_tpu_torch.set import device_build as db
+
+    own = db.build_words, db.pack_reads
+    events, packs = [], []
+
+    def build_words(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = own[0](*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def pack_reads(*a, **kw):
+        t0 = time.perf_counter()
+        out = own[1](*a, **kw)
+        packs.append(time.perf_counter() - t0)
+        return out
+
+    if k8_times is not None:
+        db.build_words, db.pack_reads = build_words, pack_reads
     kernels.reset_launches()
     sync()
     t0 = time.perf_counter()
-    solid = cli.build_set(args)
-    sync()
+    try:
+        solid = cli.build_set(args)
+        sync()
+    finally:
+        db.build_words, db.pack_reads = own
     count_s = time.perf_counter() - t0
+    if k8_times is not None:
+        k8_times["k8_device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        k8_times["pack_reads_s"] = sum(packs)
+        k8_times["read_s"] = (count_s - k8_times["pack_reads_s"]
+                              - k8_times["k8_device_ms"] / 1e3)
     corrector = make(solid)
     t0 = time.perf_counter()
     n = runtime.run_correction(args.inputs, args.outputs, solid,
@@ -1108,97 +1198,257 @@ def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
         f"corrected), {time.perf_counter() - t0:.1f} s")
 
 
-def solid_checks(seqs, k, device, sync, reps=10):
-    """K8 on the card against its plain versions, on ``seqs`` at k: K8a
-    counting into the build's first partition of the half-space (its
-    k-mers by a plain run, the count arrays compared exactly), K8b
-    packing that partition (words compared exactly); each timed as the
-    kernel checks time them, with its bound and, for K8a, the library
-    call on the same canonical k-mers (torch.unique with counts, the
-    host in the loop: it synchronises).  K8b is timed as the build
-    launches it: clearing the counts behind it where more partitions
-    follow (k = 17: 7 of 8 launches, the entry ``solid_pack[k=17]``;
-    its last launch, which leaves them, is logged beside it), and
-    leaving them where the partition is the only one (k <= 15).
-    Returns {name: {...}}."""
+#: abundances K8 is checked at on the card: every counter width (1, 2, 4
+#: and 8 bits) and both ends, where nothing is counted
+ABUNDANCES = (-1, 0, 1, 2, 3, 6, 7, 14, 15, 254, 255, 256)
+
+
+def k8_u32_kernels(lib, p, k, a, psize):
+    """(count, pack) of a baseline K8 with u32 counts (k8_u32_build's
+    entry points) on one batch: K8a counting the first partition of
+    ``psize`` counts, K8b packing it (clearing it with ``clear``)."""
+    import torch
+
+    from br_tpu_torch import kernels
+
+    dev = p.codes.device
+    stream = kernels.stream_of(dev)
+    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
+    words = torch.empty(psize // 32, dtype=torch.int32, device=dev)
+    fn = lib.br_solid_count64 if k > 15 else lib.br_solid_count
+
+    def count():
+        fn(p.codes.data_ptr(), p.codes.shape[0] // 4, p.starts.data_ptr(),
+           p.starts.shape[0], p.n_bases, k, 0, psize, counts.data_ptr(),
+           stream)
+
+    def pack(clear):
+        lib.br_solid_pack(counts.data_ptr(), psize // 128, a,
+                          words.data_ptr(), int(clear), stream)
+    return counts, count, pack
+
+
+def k8_sweep(p, k, sync, reps=10):
+    """K8a and the whole build across abundances (counter widths) on one
+    batch, each a whose counters take one partition under the default
+    cap: the CAS updates it needs (sum of min(count, a + 1) over the
+    distinct k-mers), K8a's ms from zeroed counters and again on the
+    counters it left (every update past a + 1 skipped: the loads alone),
+    and the whole build's ms.  Logged, one line an a (with --baseline
+    only)."""
+    import torch
+
+    from br_tpu_torch.set import device_build as db
+
+    _u, c = torch.unique(db.canonical_index(p, k), return_counts=True)
+    half = 1 << (2 * k - 1)
+    for a in (0, 1, 2, 3, 6, 14, 15, 254):
+        w = db.counter_bits(a)
+        if db.partition_size(k, w, db.DEFAULT_MAX_COUNT_BYTES) < half:
+            continue
+        counts = torch.zeros(half * w // 32, dtype=torch.int32,
+                             device=p.codes.device)
+        line = {"k": k, "a": a, "counter_bits": w, "distinct": c.numel(),
+                "positions": int(c.sum()),
+                "cas_updates": int(c.clamp(max=a + 1).sum())}
+        line["k8a_ms"] = cuda_ms(lambda: db.count_kmers(p, k, 0, a, counts),
+                                 reps, sync, queued=True, setup=counts.zero_)
+        line["k8a_saturated_ms"] = cuda_ms(
+            lambda: db.count_kmers(p, k, 0, a, counts), reps, sync,
+            queued=True)
+        del counts
+        line["build_ms"] = cuda_ms(lambda: db.build_words([p], k, a), reps,
+                                   sync, queued=True)
+        log("K8 sweep: " + json.dumps(line))
+        torch.cuda.empty_cache()
+
+
+def solid_checks(seqs, k, device, sync, reps=10, baseline=None):
+    """K8 on the card against its plain versions, on ``seqs`` at k and a
+    = 2 (2-bit counters): K8a counting into the build's first partition
+    of the half-space (the counter words compared exactly with the plain
+    count's), K8b packing that partition (words compared exactly); each
+    timed as the kernel checks time them, K8a from zeroed counters (the
+    zeroing queued outside its events), with its bound and, for K8a, the
+    library call on the same canonical k-mers (torch.unique with counts,
+    the host in the loop: it synchronises).  K8b is timed as the build
+    launches it: leaving the counters where the partition is the only
+    one, clearing them where more follow (then its last launch, which
+    leaves them, is logged beside it).  Then the whole build
+    (build_words: the counters' zeroing, K8a, K8b), timed and held to the
+    function's bound (the packed reads and the read starts read once, the
+    bitfield written once), its peak device memory; with ``baseline``'s
+    K8 (load_baseline's "k8"), the other tree's build and kernels
+    checked and timed beside this tree's (baseline, this tree, this
+    tree, baseline), and K8 across abundances (k8_sweep).  Bounds:
+    ``bound_ms`` each kernel's own reads and
+    writes (K8a: the packed reads, the starts, each counter word it
+    changes read and written; K8b: the counters read, the bitfield
+    written), ``old_bound_ms`` the same kernel's as the u32 design
+    counted it (8 bytes a distinct k-mer; 4 a count read, 4 more
+    cleared).  Last, K8's build against the plain build at every a of
+    ABUNDANCES.  Returns {name: {...}}."""
     import torch
 
     from br_tpu_torch import kernels
     from br_tpu_torch.set import device_build as db
 
+    a = 2
+    w = db.counter_bits(a)
     p = db.pack_reads(seqs, k, device)
-    psize = db.partition_size(k, db.DEFAULT_MAX_COUNT_BYTES)
-    nparts = -(-(1 << (2 * k - 1)) // psize)
+    half = 1 << (2 * k - 1)
+    psize = db.partition_size(k, w, db.DEFAULT_MAX_COUNT_BYTES)
+    nparts = -(-half // psize)
     idx = db.canonical_index(p, k)
     local = idx[idx < psize]
     distinct = int(torch.unique(local).numel())
-    counts = torch.zeros(psize, dtype=torch.int32, device=device)
+    touched = int(torch.unique((local * w) >> 5).numel())
+    counts = torch.zeros(psize * w // 32, dtype=torch.int32, device=device)
     want = torch.zeros_like(counts)
-    db.count_kmers_plain(p, k, 0, want)
-    db.count_kmers(p, k, 0, counts)
     sync()
-    check(torch.equal(counts, want), f"K8a at k={k}: counts differ")
+    t0 = time.perf_counter()
+    db.count_kmers_plain(p, k, 0, a, want)
+    sync()
+    count_plain_ms = (time.perf_counter() - t0) * 1e3
+    db.count_kmers(p, k, 0, a, counts)
+    sync()
+    check(torch.equal(counts, want), f"K8a at k={k}: counters differ")
+    del want
     res = {}
     name = kernels.variant("solid_count", k)
-    t0 = time.perf_counter()
-    db.count_kmers_plain(p, k, 0, want)
-    sync()
-    del want
-    nbytes = p.codes.numel() + 8 * p.starts.numel() + 8 * distinct
+    in_bytes = p.codes.numel() + 8 * p.starts.numel()
+    ms = 1e3 / HBM_BYTES_PER_S
     res[name] = {
-        "ms": cuda_ms(lambda: db.count_kmers(p, k, 0, counts), reps, sync,
-                      queued=True),
-        "plain_ms": (time.perf_counter() - t0) * 1e3,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0,
+        "ms": cuda_ms(lambda: db.count_kmers(p, k, 0, a, counts), reps,
+                      sync, queued=True, setup=counts.zero_),
+        "plain_ms": count_plain_ms,
+        "bound_ms": (in_bytes + 8 * touched) * ms,
+        "old_bound_ms": (in_bytes + 8 * distinct) * ms, "max_abs_err": 0,
         "library_ms": cuda_ms(lambda: torch.unique(local,
                                                    return_counts=True),
                               reps, sync)}
     del idx, local
+    check(db.counter_fields(counts, w).max() == a + 1,
+          f"K8a at k={k}: no counter saturated")
     words = torch.empty(psize // 32, dtype=torch.int32, device=device)
     wplain = torch.empty_like(words)
-    db.threshold_pack(counts, 2, words, clear=False)
+    db.threshold_pack(counts, a, words, clear=False)
     t0 = time.perf_counter()
-    db.threshold_pack_plain(counts, 2, wplain, clear=False)
+    db.threshold_pack_plain(counts, a, wplain, clear=False)
     sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(torch.equal(words, wplain), f"K8b at k={k}: words differ")
     del wplain
 
     def pack_bound(clear):
-        # read each count once, write each word once; the clear writes
-        # the counts back
-        return ((4 + 4 * clear) * psize + psize // 8) / HBM_BYTES_PER_S * 1e3
+        # read each counter once, write each bitfield word once; the
+        # clear writes the counters back
+        return ((1 + clear) * psize * w // 8 + psize // 8) * ms
 
-    keep_ms = cuda_ms(lambda: db.threshold_pack(counts, 2, words,
+    def old_pack_bound(clear):
+        return ((4 + 4 * clear) * psize + psize // 8) * ms
+
+    keep_ms = cuda_ms(lambda: db.threshold_pack(counts, a, words,
                                                 clear=False),
                       reps, sync, queued=True)
-    if nparts == 1:
-        res["solid_pack"] = {"ms": keep_ms, "plain_ms": plain_ms,
-                             "max_abs_err": 0, "clear": False,
-                             "bound_ms": pack_bound(False),
-                             "library_ms": None}
-    else:
-        res["solid_pack[k=17]"] = {
-            "ms": cuda_ms(lambda: db.threshold_pack(counts, 2, words,
-                                                    clear=True),
-                          reps, sync, queued=True),
-            "plain_ms": plain_ms, "max_abs_err": 0, "clear": True,
-            "bound_ms": pack_bound(True), "library_ms": None,
-            "last_partition_ms": keep_ms,
-            "last_partition_bound_ms": pack_bound(False)}
-        check(not counts.any(), f"K8b at k={k}: the counts were not "
+    pname = "solid_pack" if k <= 15 else "solid_pack[k=17]"
+    res[pname] = {"ms": keep_ms, "plain_ms": plain_ms, "max_abs_err": 0,
+                  "clear": nparts > 1, "bound_ms": pack_bound(False),
+                  "old_bound_ms": old_pack_bound(False), "library_ms": None}
+    if nparts > 1:
+        res[pname].update(
+            ms=cuda_ms(lambda: db.threshold_pack(counts, a, words,
+                                                 clear=True),
+                       reps, sync, queued=True),
+            bound_ms=pack_bound(True), old_bound_ms=old_pack_bound(True),
+            last_partition_ms=keep_ms,
+            last_partition_bound_ms=pack_bound(False))
+        check(not counts.any(), f"K8b at k={k}: the counters were not "
                                 "cleared")
+    zero_ms = cuda_ms(counts.zero_, reps, sync, queued=True)
+    del counts, words
+
+    # the whole build
+    want = db.solid_words_plain([p], k, a)
+    torch.cuda.empty_cache()
+    sync()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = db.build_words([p], k, a)
+    sync()
+    build_mem = torch.cuda.max_memory_allocated() - base_mem
+    check(torch.equal(got, want), f"K8 at k={k}: the build differs from "
+                                  "the plain build")
+    del got
+    build = {"build_ms": cuda_ms(lambda: db.build_words([p], k, a), reps,
+                                 sync, queued=True),
+             "build_bound_ms": (in_bytes + db.half_words(k) * 4) * ms,
+             "zero_ms": zero_ms, "build_peak_bytes": build_mem,
+             "counter_bytes": psize * w // 8, "partitions": nparts}
+    k8 = (baseline or {}).get("k8")
+    if k8:
+        kb = lambda: k8["build"]([p], k, a)  # noqa: E731
+        torch.cuda.empty_cache()
+        sync()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        check(torch.equal(kb(), want), f"K8 at k={k}: the baseline build "
+                                       "differs from the plain build")
+        sync()
+        old_mem = torch.cuda.max_memory_allocated() - base_mem
+        torch.cuda.empty_cache()
+        t = [cuda_ms(f, reps, sync, queued=True)
+             for f in (kb, lambda: db.build_words([p], k, a),
+                       lambda: db.build_words([p], k, a), kb)]
+        build.update(baseline_build_ms=[t[0], t[3]],
+                     build_ms_pair=[t[1], t[2]],
+                     baseline_build_peak_bytes=old_mem)
+        if k8["form"] == "u32":
+            opsize = min(1 << 30, half)
+            counts, count, pack = k8_u32_kernels(k8["lib"], p, k, a, opsize)
+            res[name]["baseline_ms"] = cuda_ms(count, reps, sync,
+                                               queued=True,
+                                               setup=counts.zero_)
+            res[pname]["baseline_ms"] = cuda_ms(
+                lambda: pack(opsize < half), reps, sync, queued=True)
+            res[pname]["baseline_clear"] = opsize < half
+            del counts, count, pack
+    for r in (res[name], res[pname]):
+        r.update(build)
+    del want
+    torch.cuda.empty_cache()
     for nm, r in res.items():
         log(f"kernel {nm}: " + json.dumps(
-            {"kernel": nm, "k": k, "reads": len(seqs), "bases": p.n_bases,
-             "partition_counts": psize, "partitions": nparts,
-             "distinct_kmers": distinct, "kernel_ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            {"kernel": nm, "k": k, "a": a, "counter_bits": w,
+             "reads": len(seqs), "bases": p.n_bases,
+             "partition_counters": psize, "partitions": nparts,
+             "distinct_kmers": distinct, "touched_counter_words": touched,
+             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "old_bound_ms": r["old_bound_ms"],
              "library_ms": r["library_ms"],
              "ms_over_bound": r["ms"] / r["bound_ms"],
-             **{key: r[key] for key in ("clear", "last_partition_ms",
-                                        "last_partition_bound_ms")
-                if key in r}}))
+             **{key: r[key] for key in (
+                 "clear", "last_partition_ms", "last_partition_bound_ms",
+                 "baseline_ms", "baseline_clear") if key in r}}))
+    log(f"K8 whole build at k={k}: " + json.dumps(
+        {**build, "build_over_bound": build["build_ms"]
+         / build["build_bound_ms"]}))
+    if baseline:
+        k8_sweep(p, k, sync, reps)
+    # every abundance, on the same batch
+    for ab in ABUNDANCES:
+        before = dict(kernels.LAUNCHES)
+        got = db.build_words([p], k, ab)
+        check(torch.equal(got, db.solid_words_plain([p], k, ab)),
+              f"K8 at k={k}, a={ab}: the build differs from the plain "
+              "build")
+        if 0 <= ab <= 254:
+            check(kernels.LAUNCHES[name] > before[name],
+                  f"K8 at k={k}, a={ab}: K8a was not launched")
+        del got
+        torch.cuda.empty_cache()
+    log(f"K8 at k={k}: equal to the plain build at a = "
+        f"{', '.join(map(str, ABUNDANCES))}")
     return res
 
 
@@ -1251,6 +1501,13 @@ NEED13 = ("dense_probe", "one_sites", "two_sites", "walk_sites",
 NEED17 = ("dense_probe64", "one_sites64", "two_sites64", "walk_sites64",
           "greedy_sites64", "chain_splice", "reverse_slots", "solid_count64",
           "solid_pack")
+
+
+#: further numbers a kernel's entry of the summary line carries, where
+#: its check has them: an earlier definition's bound (K9, dense_probe_h;
+#: K8), and K8's whole build beside its function bound
+ENTRY_EXTRAS = ("pr8_bound_ms", "old_bound_ms", "build_ms",
+                "build_bound_ms", "baseline_ms", "baseline_build_ms")
 
 
 NEED_LARGE = ("dense_probe_h", "one_sites_h", "two_sites_h", "walk_sites_h",
@@ -1668,7 +1925,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     baseline = load_baseline(base_dir) if base_dir else None
     checks = kernel_checks(dsolid.words, first, K, C, MS, device, sync,
                            baseline=baseline)
-    checks.update(solid_checks(seqs, K, device, sync))
+    checks.update(solid_checks(seqs, K, device, sync, baseline=baseline))
 
     inst = {}
 
@@ -1680,13 +1937,22 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
             return cor
         return fn
 
+    k8_times = {}
+    torch.cuda.reset_peak_memory_stats()
     solid, corrector, n, count_s, correct_s, launches = drive(
-        args, make(args), sync)
+        args, make(args), sync, k8_times)
+    peak = torch.cuda.max_memory_allocated()
     check(n == N_READS, f"wrote {n} records, expected {N_READS}")
     path_report("main path", args, solid, corrector, n, count_s, correct_s,
-                launches, inst, n_bases, card, NEED13)
-    log(f"count_s: {count_s:.3f} s by K8 on the card against "
-        f"{count_host_s:.3f} s by the host Counter (phase 3)")
+                launches, inst, n_bases, card, NEED13, set_times=k8_times)
+    log("main path device memory: " + json.dumps({
+        "max_memory_allocated": peak,
+        "table_bytes": solid.words.numel() * 4}))
+    log(f"count_s: {count_s:.3f} s by K8 on the card (K8's device "
+        f"{k8_times['k8_device_ms']:.3f} ms, the reads' packing "
+        f"{k8_times['pack_reads_s']:.3f} s, the FASTA read and the rest "
+        f"{k8_times['read_s']:.3f} s) against {count_host_s:.3f} s by the "
+        f"host Counter (phase 3)")
     retry = inst["retry"]
     check(bool(retry), "the main path retried no chunk on the wide sibling")
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
@@ -1755,8 +2021,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "bytes", "library_ms": r.get("library_ms"),
-                **({"pr8_bound_ms": r["pr8_bound_ms"]}
-                   if "pr8_bound_ms" in r else {})})
+                **{x: r[x] for x in ENTRY_EXTRAS if x in r}})
     return entries
 
 
@@ -1789,7 +2054,7 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
         "k": k, "a": 2, "reads": len(few), "nonzero_words": int(nz.numel()),
         "solid_kmers": db.popcount_words(want), "equal": True}))
     del got, want, nz
-    checks = solid_checks(seqs, k, device, sync)
+    checks = solid_checks(seqs, k, device, sync, baseline=baseline)
 
     fa17 = os.path.join(workdir, "reads17.fa")
     out17 = os.path.join(workdir, "out17.fa")
@@ -1808,20 +2073,23 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
         inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
         return cor
 
+    k8_times = {}
     torch.cuda.reset_peak_memory_stats()
     solid, corrector, n, count_s, correct_s, launches = drive(args, make,
-                                                              sync)
+                                                              sync, k8_times)
     peak = torch.cuda.max_memory_allocated()
     check(n == N17, f"k=17 wrote {n} records, expected {N17}")
     n17_bases = sum(len(s) for s in seqs[:N17])
     path_report(f"k=17 path ({N17} of {N_READS} reads corrected, the set "
                 f"from all {N_READS})", args, solid, corrector, n, count_s,
-                correct_s, launches, inst, n17_bases, card, NEED17)
+                correct_s, launches, inst, n17_bases, card, NEED17,
+                set_times=k8_times)
+    w = db.counter_bits(args.abundance)
     log("k=17 device memory: " + json.dumps({
         "max_memory_allocated": peak,
         "table_bytes": solid.words.numel() * 4,
-        "count_partition_bytes": 4 * db.partition_size(
-            k, db.DEFAULT_MAX_COUNT_BYTES)}))
+        "count_partition_bytes": db.partition_size(
+            k, w, db.DEFAULT_MAX_COUNT_BYTES) * w // 8}))
     idxs, starts = corrector._plan(seqs[:N17], set(), set())[0]
     first = corrector._chunk_arrays(seqs[:N17], idxs, starts)
     checks.update(kernel_checks(corrector.table, first, k, C, MS, device,
@@ -1841,7 +2109,8 @@ def main():
     ap.add_argument("--baseline", metavar="CSRC_DIR",
                     help="also check and time K1-K7 at k = 13 (the 64-bit "
                          "ones at k = 17, the sorted-table ones and K9 at "
-                         "k = 21 and on the 1 GiB table) as built from "
+                         "k = 21 and on the 1 GiB table, and K8 and its "
+                         "whole build at k = 13 and 17) as built from "
                          "this directory, those whose sources differ from "
                          "this tree's (the parent commit's csrc: git "
                          "archive <commit> br_tpu_torch/csrc)")

@@ -570,12 +570,27 @@ def test_k17_dense_probe_stress(dev):
     assert bool((dp.kmers >> 33).any())
 
 
-@pytest.mark.parametrize("a", [0, 2, 255])
-@pytest.mark.parametrize("k", [11, 13, 17])
+#: abundances that cross every K8 counter width (1, 2, 4, 8 bits) and
+#: both ends, where nothing is counted
+SOLID_ABUNDANCES = (-1, 0, 1, 2, 3, 6, 7, 14, 15, 254, 255, 256)
+
+
+def _solid_launches(db, k, a, nparts, nbatches):
+    """K8's launches in a build: K8a once a batch a partition, K8b once a
+    partition (none at w = 1, where the counters are the bitfield); none
+    of either at a < 0 or a >= 255."""
+    if not 0 <= a <= 254:
+        return 0, 0
+    return nbatches * nparts, nparts if db.counter_bits(a) > 1 else 0
+
+
+@pytest.mark.parametrize("a", SOLID_ABUNDANCES)
+@pytest.mark.parametrize("k", [11, 13, 15, 17])
 def test_solid_build_matches_plain(dev, k, a):
     """K8 (count and pack) against the plain build, across two batches,
-    in one partition of the half-space (k <= 15; 8 at k = 17) and in 32
-    (a byte cap of 2^(2k-4)); k-mers seen more than 255 times."""
+    in one partition of the half-space (under the default cap: every k
+    but 17 at a >= 15, two there) and in 32 (a cap of 1/32 of the
+    counters' bytes); k-mers seen 300 times."""
     from br_tpu_torch.set import device_build as db
 
     rng = np.random.default_rng(k)
@@ -586,31 +601,111 @@ def test_solid_build_matches_plain(dev, k, a):
     want = db.solid_words_plain(batches, k, a)
     name = kernels.variant("solid_count", k)
     half = 1 << (2 * k - 1)
-    for cap in (db.DEFAULT_MAX_COUNT_BYTES, 1 << (2 * k - 4)):
+    w = db.counter_bits(a) if 0 <= a <= 254 else 1
+    for cap in (db.DEFAULT_MAX_COUNT_BYTES, half * w // 8 // 32):
         before = dict(kernels.LAUNCHES)
         got = db.build_words(batches, k, a, max_count_bytes=cap)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        nparts = -(-half // db.partition_size(k, cap))
-        assert kernels.LAUNCHES[name] - before[name] == 2 * nparts
-        assert kernels.LAUNCHES["solid_pack"] - before["solid_pack"] == \
-            nparts
+        nparts = -(-half // db.partition_size(k, w, cap))
+        assert (kernels.LAUNCHES[name] - before[name],
+                kernels.LAUNCHES["solid_pack"] - before["solid_pack"]) == \
+            _solid_launches(db, k, a, nparts, 2)
+        assert nparts == (2 if k == 17 and w == 8 else 1) or \
+            cap != db.DEFAULT_MAX_COUNT_BYTES
     assert nparts == 32
     assert (db.popcount_words(want) > 0) == (a < 255)
+    assert (db.popcount_words(want) == half) == (a < 0)
+
+
+@pytest.mark.parametrize("a", [2, 254])
+def test_solid_count_contention(dev, a):
+    """One k-mer seen 10^5 times in one batch, in two layouts: 10^5
+    copies of a k-base read (one position each, neighbouring threads on
+    one counter) and a homopolymer read (every position the same k-mer,
+    each thread's 16 updates on one counter): the counter reads a + 1,
+    the rest of its word 0, and the bit is the plain build's."""
+    from br_tpu_torch.set import device_build as db
+
+    k = tc.K
+    one = np.random.default_rng(a).choice(tc.BASES, size=k).tobytes()
+    w = db.counter_bits(a)
+    half = 1 << (2 * k - 1)
+    for reads in ([one] * 100_000, [b"A" * (100_000 + k - 1)]):
+        p = db.pack_reads(reads, k, dev)
+        counts = torch.zeros(half * w // 32, dtype=torch.int32, device=dev)
+        db.count_kmers(p, k, 0, a, counts)
+        want = torch.zeros_like(counts)
+        db.count_kmers_plain(p, k, 0, a, want)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, want)
+        fields = db.counter_fields(counts, w)
+        (idx,) = torch.nonzero(fields, as_tuple=True)
+        assert idx.numel() == 1 and int(fields[idx]) == a + 1
+        got = db.build_words([p], k, a)
+        assert torch.equal(got, db.solid_words_plain([p], k, a))
+        assert db.popcount_words(got) == 1
+
+
+@pytest.mark.parametrize("a", [0, 1, 2, 3, 14, 15, 254])
+@pytest.mark.parametrize("k", [13, 17])
+def test_solid_kernels_match_plain(dev, k, a):
+    """K8a and K8b each against its plain version at every counter width
+    (K8b from 2 bits: at a = 0 the 1-bit counters are the bitfield, and
+    K8b refuses them): K8a counting two batches into the second of four
+    partitions, on counters left from a first count of one batch, K8b
+    on random counter words (fields above a + 1 among them) and on
+    K8a's."""
+    from br_tpu_torch.set import device_build as db
+
+    rng = np.random.default_rng(a)
+    g = rng.choice(tc.BASES, size=6000).tobytes()
+    reads = tc.fuzz_reads(rng, g, 80, 4, k=k) + [g[200:500]] * (a + 3)
+    batches = [db.pack_reads(reads[:40], k, dev),
+               db.pack_reads(reads[40:], k, dev)]
+    w = db.counter_bits(a)
+    psize = (1 << (2 * k - 1)) // 4
+    counts = torch.zeros(psize * w // 32, dtype=torch.int32, device=dev)
+    db.count_kmers(batches[0], k, psize, a, counts)
+    want = counts.clone()
+    name = kernels.variant("solid_count", k)
+    before = kernels.LAUNCHES[name]
+    for p in batches:
+        db.count_kmers(p, k, psize, a, counts)
+        db.count_kmers_plain(p, k, psize, a, want)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 2
+    assert torch.equal(counts, want)
+    assert int(db.counter_fields(counts, w).max()) == a + 1
+    if w == 1:   # the counters are the bitfield: K8b takes w >= 2
+        with pytest.raises(ValueError):
+            db.threshold_pack(counts, a, counts[:counts.shape[0] // 2])
+        return
+    g2 = torch.Generator().manual_seed(a)
+    noise = torch.randint(-(1 << 31), 1 << 31, (1 << 16,), generator=g2,
+                          dtype=torch.int32).to(dev)
+    for c in (noise, counts):
+        words = torch.empty(c.shape[0] // w, dtype=torch.int32, device=dev)
+        plain = torch.empty_like(words)
+        db.threshold_pack(c, a, words, clear=False)
+        db.threshold_pack_plain(c, a, plain, clear=False)
+        torch.cuda.synchronize()
+        assert torch.equal(words, plain)
+    assert db.popcount_words(words) > 0
 
 
 @pytest.mark.parametrize("clear", [False, True])
 def test_solid_pack_clear(dev, clear):
-    """K8b leaves the counts as they are, or zeroes them behind its read
-    (the build clears every partition but the last); the words are the
-    plain version's either way."""
+    """K8b leaves the counters as they are, or zeroes them behind its
+    read (the build clears every partition but the last, where there
+    are several); the words are the plain version's either way."""
     from br_tpu_torch.set import device_build as db
 
     g = torch.Generator().manual_seed(8)
-    counts = torch.randint(0, 300, (1 << 16,), generator=g,
+    counts = torch.randint(-(1 << 31), 1 << 31, (1 << 16,), generator=g,
                            dtype=torch.int32).to(dev)
     kept = counts.clone()
-    words = torch.empty(counts.shape[0] // 32, dtype=torch.int32,
+    words = torch.empty(counts.shape[0] // 2, dtype=torch.int32,
                         device=dev)
     want = torch.empty_like(words)
     db.threshold_pack_plain(kept.clone(), 2, want, clear=False)

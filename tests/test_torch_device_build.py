@@ -8,10 +8,15 @@ through K8's plain count and pack equal ``build_solid_words_on_device``
 on a small corpus (set bits compared by index: the module's one 1 GiB
 field); and ``Counter(k).to_solid(a)`` for a = 0, 1, 254, 255 on reads
 with a k-mer seen more than 255 times, where br_tpu's exact count
-differs at a = 255 and the port keeps the host's saturated count."""
+differs at a = 255 and the port keeps the host's saturated count.  The
+narrow count (w-bit counters saturating at a + 1) holds ``min(count, a +
+1)`` of the host's count, and its pack equals both builds, for every a
+that crosses a counter width (-1, 0, 1, 2, 3, 6, 7, 14, 15, 254, 255,
+256), on reads whose k-mers are seen 254, 255, 256 and 300 times."""
 
 import numpy as np
 import pytest
+import torch
 
 import torch_cases as tc
 from br_tpu.set.device_build import build_solid_words_on_device
@@ -31,6 +36,84 @@ def _words(reads, k, a, **kw):
     return db.build_solid_words(reads, k, a, "cpu", **kw)
 
 
+def _cap4(k, a):
+    """A byte cap that cuts the half-space into 4 partitions of a's
+    counters."""
+    w = db.counter_bits(a) if 0 <= a <= 254 else 1
+    return (1 << (2 * k - 1)) * w // 32
+
+
+#: abundances that cross every counter width (1, 2, 4, 8 bits) and both
+#: ends, where nothing is counted
+ABUNDANCES = (-1, 0, 1, 2, 3, 6, 7, 14, 15, 254, 255, 256)
+#: times the k-mers of one random segment each are seen
+REPEATS = (254, 255, 256, 300)
+
+
+def _repeat_reads(seed, k):
+    """Genome reads with errors, then one random 40-base segment a count
+    of REPEATS, each repeated that many times (split over two reads so
+    two batches count it)."""
+    rng = np.random.default_rng(seed)
+    g = rng.choice(tc.BASES, size=3000).tobytes()
+    reads = tc.fuzz_reads(rng, g, 30, 4, k=k)
+    for n in REPEATS:
+        seg = rng.choice(tc.BASES, size=40).tobytes()
+        reads += [seg] * n
+    return reads
+
+
+def test_counter_bits_cross_every_width():
+    want = {0: 1, 1: 2, 2: 2, 3: 4, 6: 4, 7: 4, 14: 4, 15: 8, 254: 8}
+    assert {a: db.counter_bits(a) for a in want} == want
+    for a in (-1, 255, 256):
+        with pytest.raises(ValueError):
+            db.counter_bits(a)
+    assert db.partition_size(17, 2, db.DEFAULT_MAX_COUNT_BYTES) == 1 << 33
+    assert db.partition_size(17, 8, db.DEFAULT_MAX_COUNT_BYTES) == 1 << 32
+    assert db.partition_size(13, 2, 1 << 20) == 1 << 22
+    assert db.partition_size(1, 2, 1 << 20) == db.GROUP
+
+
+@pytest.mark.parametrize("k", [11, 13])
+def test_narrow_count_and_pack_match_br_tpu(k):
+    """The plain K8a leaves min(count, a + 1) in each w-bit counter (the
+    host Counter's u8 count, k-mers seen 254 to 300 times among them),
+    and the plain K8b's bits equal ``Counter.to_solid(a)`` and br_tpu's
+    device build for every a below 255; at a < 0 (every bit) and a >=
+    255 (none) the sweep counts nothing and follows the Counter, where
+    br_tpu's exact count keeps the k-mers seen 256 and 300 times."""
+    reads = _repeat_reads(k + 100, k)
+    counter = Counter(k).count_sequences(reads)
+    raw = counter.raw()
+    assert sorted(set(raw[raw > 200].tolist())) == [254, 255]
+    batches = [db.pack_reads(reads[:200], k, "cpu"),
+               db.pack_reads(reads[200:], k, "cpu")]
+    half = 1 << (2 * k - 1)
+    for a in ABUNDANCES:
+        want = counter.to_solid(a).host_words()
+        if not 0 <= a <= 254:
+            got = db.build_words(batches, k, a)
+            assert np.array_equal(got.numpy().view(np.uint32), want), a
+            continue
+        w = db.counter_bits(a)
+        counts = torch.zeros(half * w // 32, dtype=torch.int32)
+        for p in batches:
+            db.count_kmers(p, k, 0, a, counts)
+        fields = db.counter_fields(counts, w).numpy()
+        assert np.array_equal(fields, np.minimum(raw, a + 1)), a
+        words = counts   # a = 0: the 1-bit counters are the bitfield
+        if w > 1:
+            words = torch.empty(half // 32, dtype=torch.int32)
+            db.threshold_pack(counts, a, words, clear=False)
+        got = words.numpy().view(np.uint32)
+        assert np.array_equal(got, want), a
+        jw = np.asarray(build_solid_words_on_device(reads, k, a))
+        assert np.array_equal(got, jw), a
+    assert not want.any()   # a = 256: empty
+    assert np.asarray(build_solid_words_on_device(reads, k, 255)).any()
+
+
 @pytest.mark.parametrize("k", [11, 13])
 def test_plain_build_matches_br_tpu(k):
     reads = _reads(k, k)
@@ -44,7 +127,7 @@ def test_plain_build_matches_br_tpu(k):
         batches = [db.pack_reads(reads[:15], k, "cpu"),
                    db.pack_reads(reads[15:], k, "cpu")]
         swept = db.build_words(batches, k, a,
-                               max_count_bytes=1 << (2 * k - 1))
+                               max_count_bytes=_cap4(k, a))
         assert np.array_equal(swept.numpy().view(np.uint32), want)
         assert want.any()
 
@@ -75,7 +158,7 @@ def test_build_matches_counter_at_every_saturation():
         batches = [db.pack_reads(reads[:100], k, "cpu"),
                    db.pack_reads(reads[100:], k, "cpu")]
         swept = db.build_words(batches, k, a,
-                               max_count_bytes=1 << (2 * k - 1))
+                               max_count_bytes=_cap4(k, a))
         assert np.array_equal(swept.numpy().view(np.uint32), want), a
     assert not got.any()   # a = 255: empty
     assert np.asarray(build_solid_words_on_device(reads, k, 255)).any()
