@@ -295,15 +295,58 @@ def rolling_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
 
 
 
+def _check_codes(t, name: str) -> None:
+    if t.dtype != torch.uint8:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected uint8")
+
+
 def unpack_codes(packed: torch.Tensor, L: int) -> torch.Tensor:
-    """(..., L//4) uint8 with 4 LSB-first 2-bit codes per byte -> (..., L)."""
+    """(..., L//4) uint8 with 4 LSB-first 2-bit codes per byte -> (..., L)
+    (B7, ``make_unpack3_fn``): K11a ``unpack_codes`` for a CUDA tensor,
+    ``unpack_codes_plain`` for a CPU one."""
+    from br_tpu_torch import kernels
+
+    _check_codes(packed, "packed")
+    if packed.dim() < 1 or 4 * packed.shape[-1] != L:
+        raise ValueError(f"packed codes of shape {tuple(packed.shape)} do "
+                         f"not hold {L} codes a row")
+    if not kernels.on_cuda(packed):
+        return unpack_codes_plain(packed, L)
+    packed = packed.contiguous()
+    codes = torch.empty(packed.shape[:-1] + (L,), dtype=torch.uint8,
+                        device=packed.device)
+    kernels.launch("unpack_codes", packed, packed.numel(), codes)
+    return codes
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Inverse of unpack_codes; strips anything above the 2-bit code (B7,
+    ``make_pack3_fn``): K11b ``pack_codes`` for a CUDA tensor,
+    ``pack_codes_plain`` for a CPU one."""
+    from br_tpu_torch import kernels
+
+    _check_codes(codes, "codes")
+    if codes.dim() < 1 or codes.shape[-1] % 4:
+        raise ValueError(f"codes of shape {tuple(codes.shape)}: the last "
+                         "axis must be a multiple of 4")
+    if not kernels.on_cuda(codes):
+        return pack_codes_plain(codes)
+    codes = codes.contiguous()
+    packed = torch.empty(codes.shape[:-1] + (codes.shape[-1] // 4,),
+                         dtype=torch.uint8, device=codes.device)
+    kernels.launch("pack_codes", codes, packed.numel(), packed)
+    return packed
+
+
+def unpack_codes_plain(packed: torch.Tensor, L: int) -> torch.Tensor:
+    """The plain version of K11a in PyTorch ops."""
     sh = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
     c = (packed.unsqueeze(-1) >> sh) & 3
     return c.reshape(packed.shape[:-1] + (L,))
 
 
-def pack_codes(codes: torch.Tensor) -> torch.Tensor:
-    """Inverse of unpack_codes; strips anything above the 2-bit code."""
+def pack_codes_plain(codes: torch.Tensor) -> torch.Tensor:
+    """The plain version of K11b in PyTorch ops."""
     L = codes.shape[-1]
     c = (codes & 3).reshape(codes.shape[:-1] + (L // 4, 4))
     return (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)

@@ -39,6 +39,13 @@ built, and a host copy of it is made only when the native engine first
 needs one.  A ``HashSet``'s padded table is copied to the device once
 and its bucket index built there (``HashSet.device_table_tensor``),
 shared by the wide sibling; the native engine takes the host set itself.
+
+A chunk crosses the bus 2-bit packed: K11a ``unpack_codes`` unpacks it at
+the chain's entry and K11b ``pack_codes`` packs it at its exit
+(``device_codec``).  With ``mesh`` set (a ``parallel.mesh.Mesh``), a
+batch's chunks go round robin over the shards, chunk i on shard i mod D's
+device against the table's copy there (``_dispatch_sharded``); the
+output, cap flags and ``last_stats`` are the one-device corrector's.
 """
 
 from __future__ import annotations
@@ -157,6 +164,20 @@ def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
 # Batch driver: flat chunk packing, 2-bit packed transfers.
 # ---------------------------------------------------------------------------
 
+def _fetch(handles, j):
+    """Element j of every handle as numpy arrays, in order: one stack and
+    copy to the host for the handles of each device."""
+    by_dev: dict = {}
+    for i, h in enumerate(handles):
+        by_dev.setdefault(h[j].device, []).append(i)
+    out = [None] * len(handles)
+    for idx in by_dev.values():
+        arr = torch.stack([handles[i][j] for i in idx]).cpu().numpy()
+        for r, i in enumerate(idx):
+            out[i] = arr[r]
+    return out
+
+
 _PURE_LUT = np.zeros(256, dtype=bool)
 _PURE_LUT[[65, 67, 71, 84]] = True  # 'A' 'C' 'G' 'T'
 _DECODE = np.frombuffer(b"ACTG", dtype=np.uint8)
@@ -220,6 +241,11 @@ class Torch3Corrector:
                                          walk_max=walk_max)
                         for s in set(self.corrections)}
         self._wide = None
+        #: a ``parallel.mesh.Mesh`` to spread the chunks over (None: this
+        #: corrector's device only); its retries run on the wide sibling,
+        #: which has no mesh (engine3.py:2112-2122)
+        self.mesh = None
+        self._mesh_tables = None
         self.threads = threads
         #: the native host engine, built at first use; the wide sibling
         #: (its ``parent`` set) takes its parent's
@@ -293,19 +319,20 @@ class Torch3Corrector:
 
     # -- the batch interface ---------------------------------------------------
 
-    def run_chain(self, codes, rstart, rlen, two_side: bool):
+    def run_chain(self, codes, rstart, rlen, two_side: bool, table=None):
         """The full chain on one chunk already on the device: every
         strategy forward, then (two_side False) reverse, every strategy,
-        reverse back.  Returns (codes, out_lens, cap) without a host
-        synchronisation."""
+        reverse back, against ``table`` (the corrector's device table by
+        default; a mesh shard's copy on its device).  Returns (codes,
+        out_lens, cap) without a host synchronisation."""
+        table = self.table if table is None else table
         cap_any = torch.zeros(rstart.shape[0], dtype=torch.bool,
                               device=codes.device)
         n = rlen
 
         def one_direction(a, n, cap_any):
             for strat in self.corrections:
-                a, n, cap, _aux = self._passes[strat](self.table, a,
-                                                      rstart, n)
+                a, n, cap, _aux = self._passes[strat](table, a, rstart, n)
                 cap_any = cap_any | cap
             return a, n, cap_any
 
@@ -316,14 +343,37 @@ class Torch3Corrector:
             a = reverse_slots(a, rstart, n)
         return a, n, cap_any
 
-    def _dispatch_chunk(self, seqs, idxs, starts, two_side: bool):
-        packed, rstart, rlen = self._chunk_arrays(seqs, idxs, starts)
-        dev = self.device
+    def _run_arrays(self, arrays, dev, table, two_side: bool):
+        """One chunk's host arrays (``_chunk_arrays``) copied to ``dev``,
+        unpacked (K11a), run through the chain against ``table`` and
+        packed (K11b): the handles (packed codes, out_lens, cap)."""
+        packed, rstart, rlen = arrays
         a = dc.unpack_codes(torch.from_numpy(packed).to(dev), self.CHUNK)
         rs = torch.from_numpy(rstart).to(dev)
         n = torch.from_numpy(rlen).to(dev)
-        a, n, cap = self.run_chain(a, rs, n, two_side)
+        a, n, cap = self.run_chain(a, rs, n, two_side, table)
         return dc.pack_codes(a), n, cap
+
+    def _dispatch_chunk(self, seqs, idxs, starts, two_side: bool):
+        return self._run_arrays(self._chunk_arrays(seqs, idxs, starts),
+                                self.device, self.table, two_side)
+
+    def _dispatch_sharded(self, seqs, plans, two_side: bool):
+        """Chunk i on shard i mod D's device against the table's copy
+        there (engine3.py:2401-2436 runs them in groups of D, a short
+        group padded with empty chunks, as pmap needs one a device; here
+        each chunk is its own dispatch, so nothing is padded).  Returns
+        per-plan handles like ``_dispatch_chunk``."""
+        from br_tpu_torch.parallel.mesh import replicated
+
+        mesh = self.mesh
+        if self._mesh_tables is None or self._mesh_tables[0] is not mesh:
+            self._mesh_tables = (mesh, replicated(mesh, self.table))
+        tables = self._mesh_tables[1]
+        D = mesh.size
+        return [self._run_arrays(self._chunk_arrays(seqs, idxs, starts),
+                                 mesh[i % D], tables[i % D], two_side)
+                for i, (idxs, starts) in enumerate(plans)]
 
     def correct_batch(self, seqs, two_side: bool):
         out = [None] * len(seqs)
@@ -333,14 +383,15 @@ class Torch3Corrector:
         }
         too_long: set = set()
         plans = self._plan(seqs, impure, too_long)
-        handles = [self._dispatch_chunk(seqs, idxs, starts, two_side)
-                   for idxs, starts in plans]
+        if self.mesh is not None:
+            handles = self._dispatch_sharded(seqs, plans, two_side)
+        else:
+            handles = [self._dispatch_chunk(seqs, idxs, starts, two_side)
+                       for idxs, starts in plans]
         capped = []
         if handles:
-            # one fetch per array kind for the whole batch
-            a_all = torch.stack([h[0] for h in handles]).cpu().numpy()
-            n_all = torch.stack([h[1] for h in handles]).cpu().numpy()
-            cap_all = torch.stack([h[2] for h in handles]).cpu().numpy()
+            # one fetch per array kind and device for the whole batch
+            a_all, n_all, cap_all = (_fetch(handles, j) for j in range(3))
         for ci, (idxs, starts) in enumerate(plans):
             a_np, n_np, cap_np = a_all[ci], n_all[ci], cap_all[ci]
             codes = np.empty(a_np.shape[0] * 4, np.uint8)

@@ -9,10 +9,13 @@ registers (k <= 15) and one named ``<name>64`` for 64-bit registers
 takes the table's bucket index (``device_codec.SortedTable``: the
 offsets, the table's entry count, ``shift`` and ``bucket_levels``) as its
 last arguments before the stream.  K8 has a count and a pack kernel; K9
-``hash_probe`` is the sorted-table probe on its own.  At first use a
-source is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``<repo>/build/kernels`` (git-ignored) and loaded with
-``ctypes``; every pointer and the stream pass as ``c_void_p``.
+``hash_probe`` is the sorted-table probe on its own; K10
+``merge_counts`` merges several shards' K8 counters; K11 unpacks
+(``unpack_codes``) and packs (``pack_codes``) a chunk's 2-bit codes.
+At first use a source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library under ``<repo>/build/kernels`` (git-ignored) and
+loaded with ``ctypes``; every pointer and the stream pass as
+``c_void_p``.
 ``build_all`` starts one ``nvcc`` per source, all at once.  Libraries are
 named by a hash of their source, headers and flags, so an edited source
 is rebuilt.  Under BR_BOUNDS_CHECK=1 the libraries are the checked build
@@ -65,6 +68,10 @@ KERNELS = {
     "solid_pack": ("solid_build.cu", "br_solid_pack", "pliipi" + "p"),
     "hash_probe": ("hash_probe.cu", "br_hash_probe", "ppiii" + "pli" + "p"
                    + "p"),
+    "merge_counts": ("merge_counts.cu", "br_merge_counts", "pilii" + "p"
+                     + "p"),
+    "unpack_codes": ("pack_codes.cu", "br_unpack_codes", "plp" + "p"),
+    "pack_codes": ("pack_codes.cu", "br_pack_codes", "plp" + "p"),
 }
 #: the 64-bit instantiations (a bitfield at k = 17) of the k-mer kernels:
 #: the same source and arguments, entry point ``<entry>64``.
@@ -258,14 +265,21 @@ def library(name: str):
 
 def launch(name: str, *args) -> None:
     """Call a kernel's C entry point, tensors passed as device pointers
-    and PyTorch's current stream of their device appended; count its
-    launches; raise on a CUDA error (the entry point returns
-    ``cudaGetLastError()``)."""
+    and PyTorch's current stream of their device appended, with that
+    device current (a launch goes to the current device: a shard's
+    kernel on another card than the current one would not find its
+    memory); count its launches; raise on a CUDA error (the entry point
+    returns ``cudaGetLastError()``)."""
     lib = library(name)
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    err = getattr(lib, KERNELS[name][1])(*cargs, stream_of(dev))
+    fn = getattr(lib, KERNELS[name][1])
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = fn(*cargs, stream_of(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*cargs, stream_of(dev))
     if err != 0:
         msg = lib.br_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")

@@ -30,11 +30,19 @@ two.  Batches are kept packed on the device (a quarter byte a base), so
 a caller can stream records through ``SolidBuilder.add`` without holding
 a file.
 
-``count_kmers`` and ``threshold_pack`` launch their kernels for CUDA
-tensors and run their plain versions for CPU tensors.  The plain version
-of the whole build, ``solid_words_plain`` (``torch.unique`` with counts),
-is what ``SolidBuilder.finish`` runs for a builder on the CPU: a dense
-sweep of 2^33 counters would not fit a test's memory at k = 17.
+The sweep takes the batches grouped by shard (``build_words``).  Each
+group counts on its batches' device into its own row of the partition's
+counters; with more than one row, K10 ``merge_counts``
+(``csrc/merge_counts.cu``) takes every counter to min(sum over the rows,
+a + 1) on the sweep's device before K8b packs (at w = 1 the merge is the
+OR and writes the bitfield).  One group is the one-device build.
+
+``count_kmers``, ``threshold_pack`` and ``merge_counts`` launch their
+kernels for CUDA tensors and run their plain versions for CPU tensors.
+The plain version of the whole build, ``solid_words_plain``
+(``torch.unique`` with counts), is what ``SolidBuilder.finish`` runs for a
+builder on the CPU: a dense sweep of 2^33 counters would not fit a test's
+memory at k = 17.
 """
 
 from __future__ import annotations
@@ -127,7 +135,7 @@ def canonical_index(p: Packed, k: int):
     """``cano >> 1`` of the k-mer ending at every valid position of
     ``p`` (int64, in position order)."""
     n = p.n_bases
-    c = dc.unpack_codes(p.codes, 4 * p.codes.shape[0])[:n].long()
+    c = dc.unpack_codes_plain(p.codes, 4 * p.codes.shape[0])[:n].long()
     km = torch.zeros(n, dtype=torch.int64, device=c.device)
     for t in range(k):
         km[t:] |= c[: n - t] << (2 * t)
@@ -195,8 +203,8 @@ def pack_bits(solid):
     return b.view(torch.int32)
 
 
-#: counter words the plain pack takes at a time (its uint8 fields, at
-#: most 128 MiB)
+#: counter words the plain pack and merge take at a time (their uint8
+#: fields, at most 128 MiB a row)
 _PLAIN_WORDS = 1 << 22
 
 
@@ -235,41 +243,115 @@ def partition_size(k: int, w: int, max_count_bytes: int) -> int:
     return min(psize, max(GROUP, half))
 
 
+def _check_merge(rows, w: int, cap: int) -> None:
+    if w not in (1, 2, 4, 8):
+        raise ValueError(f"counter width {w}: 1, 2, 4 or 8 bits")
+    if not 1 <= cap <= (1 << w) - 1:
+        raise ValueError(f"cap {cap} outside 1 .. {(1 << w) - 1} at "
+                         f"w = {w}")
+    if rows.dtype != torch.int32:
+        raise TypeError(f"rows have dtype {rows.dtype}, expected int32")
+    if rows.dim() != 2 or rows.shape[0] < 1 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (D, n) tensor, D >= 1")
+
+
+def merge_counts(rows, w: int, cap: int, out=None):
+    """K10: ``out`` (n int32 words, apart from ``rows``; a new tensor
+    where it is None) = for each w-bit counter, min(sum over the D rows
+    of ``rows`` (D, n), cap); at w = 1 and cap 1, the OR."""
+    _check_merge(rows, w, cap)
+    d, n = rows.shape
+    if out is None:
+        out = torch.empty(n, dtype=torch.int32, device=rows.device)
+    kernels.check(out, "out", torch.int32, rows.device, n)
+    if kernels.on_cuda(rows):
+        kernels.launch("merge_counts", rows, d, n, w, cap, out)
+        return out
+    return merge_counts_plain(rows, w, cap, out)
+
+
+def merge_counts_plain(rows, w: int, cap: int, out=None):
+    """The same function as K10 in plain PyTorch ops, a slice of words at
+    a time: the rows' fields as uint8, summed in int32, clamped at cap,
+    packed back."""
+    _check_merge(rows, w, cap)
+    n = rows.shape[1]
+    if out is None:
+        out = torch.empty(n, dtype=torch.int32, device=rows.device)
+    sh = torch.arange(0, 8, w, dtype=torch.int32, device=rows.device)
+    for i in range(0, n, _PLAIN_WORDS):
+        part = rows[:, i:i + _PLAIN_WORDS]
+        f = torch.stack([counter_fields(r.contiguous(), w)
+                         for r in part]).sum(0, dtype=torch.int32)
+        b = (f.clamp(max=cap).reshape(-1, 8 // w) << sh).sum(1)
+        out[i:i + part.shape[1]] = b.to(torch.uint8).view(torch.int32)
+    return out
+
+
+def count_group(batches, k: int, pbase: int, a: int, row) -> None:
+    """K8a of one shard's batches (all on one device) into ``row``:
+    directly where they lie on the row's device, else into counters on
+    their own device, copied over and freed."""
+    batches = [p for p in batches if p.n_bases]
+    if not batches:
+        return
+    dev = batches[0].codes.device
+    local = row if dev == row.device else torch.zeros_like(row, device=dev)
+    for p in batches:
+        count_kmers(p, k, pbase, a, local)
+    if local is not row:
+        row.copy_(local)
+
+
 def _abundance(a) -> int:
     """``a`` clamped to -1 .. 255: below 0 every k-mer is solid, from 255
     none (the u8 count's limit)."""
     return max(-1, min(int(a), 255))
 
 
-def build_words(batches, k: int, abundance: int,
+def build_words(groups, k: int, abundance: int,
                 max_count_bytes: int = DEFAULT_MAX_COUNT_BYTES,
                 device=None):
-    """The partitioned sweep over the half-space through K8a and K8b (on
-    the batches' device, or ``device``: the kernels on the card, their
-    plain versions on the CPU).  Returns the bitfield as int32 words."""
+    """The partitioned sweep over the half-space through K8a, K10 and K8b
+    on ``device`` (the first group's first batch's by default: the
+    kernels on the card, their plain versions on the CPU).  ``groups``
+    holds the batches by shard: each group counts into its own row of
+    counters, the rows (all of them together at most
+    ``max_count_bytes``) merged by K10 where there is more than one.
+    Returns the bitfield as int32 words."""
     dc.check_k(k)
-    dev = device or batches[0].codes.device
+    dev = device or groups[0][0].codes.device
     a = _abundance(abundance)
     if not 0 <= a <= 254:   # nothing to count
         words = torch.full((half_words(k),), -1 if a < 0 else 0,
                            dtype=torch.int32, device=dev)
         return _tail_mask(words, k)
     w = counter_bits(a)
+    d = len(groups)
     half = 1 << (2 * k - 1)
-    psize = partition_size(k, w, max_count_bytes)
+    psize = partition_size(k, w, max_count_bytes // d)
     nparts = -(-half // psize)
-    # at w = 1 the counters are the bitfield's words
+    # at w = 1 and one group the counters are the bitfield's words
     words = (torch.zeros if w == 1 else torch.empty)(
         nparts * psize // 32, dtype=torch.int32, device=dev)
-    counts = None if w == 1 else torch.zeros(psize * w // 32,
-                                             dtype=torch.int32, device=dev)
+    rows = None if w == 1 and d == 1 else torch.zeros(
+        (d, psize * w // 32), dtype=torch.int32, device=dev)
+    merged = None if w == 1 or d == 1 else torch.empty(
+        psize * w // 32, dtype=torch.int32, device=dev)
     for part in range(nparts):
         out = words[part * psize // 32:(part + 1) * psize // 32]
-        for p in batches:
-            count_kmers(p, k, part * psize, a, out if w == 1 else counts)
+        # the last partition's counters are read by nothing after it
+        last = part + 1 == nparts
+        for r, batches in enumerate(groups):
+            count_group(batches, k, part * psize, a,
+                        out if rows is None else rows[r])
+        if d > 1:
+            merge_counts(rows, w, a + 1, out if w == 1 else merged)
+            if not last:
+                rows.zero_()
         if w > 1:
-            # the last partition's counters are read by nothing after it
-            threshold_pack(counts, a, out, clear=part + 1 < nparts)
+            threshold_pack(rows[0] if d == 1 else merged, a, out,
+                           clear=d == 1 and not last)
     return _tail_mask(words[:half_words(k)], k)
 
 
@@ -321,7 +403,7 @@ class SolidBuilder:
         """The bitfield of ``min(count, 255) > abundance`` as int32 words
         on the device."""
         if self.device.type == "cuda":
-            return build_words(self.batches, self.k, abundance,
+            return build_words([self.batches], self.k, abundance,
                                self.max_count_bytes, self.device)
         return solid_words_plain(self.batches, self.k, abundance,
                                  self.device)

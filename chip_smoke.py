@@ -44,15 +44,15 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    (the counters' zeroing, K8a, K8b) timed against the function's bound
    (the packed reads read once, the bitfield written once), with its
    peak device memory (with --baseline, the other tree's K8 built and
-   timed beside it; a K8 with u32 counts, as commit f531983's, through
-   its own entry points and sweep: k8_u32_build; and K8a and the build
-   at each a whose counters take one partition: k8_sweep); then K8's build
-   against its plain build at every a of ABUNDANCES;
+   timed beside it, and K8a and the build at each a whose counters take
+   one partition: k8_sweep); then K8's build against its plain build at
+   every a of ABUNDANCES;
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, whose K8 count is count_s, with K8's
    device ms, the reads' packing and the FASTA read beside it, then
-   make_corrector, run_correction) with every launch count set to 0 just
+   make_corrector, run_correction: each chunk unpacked by K11a and
+   packed by K11b around its chain) with every launch count set to 0 just
    before; the passes' cap counters by reason and strategy; the host
    engine's seconds (host_oracle_s: the native engine on the reads the
    device did not finish, with its set copied at first need), its name and
@@ -103,7 +103,8 @@ In order, each phase ending the run with a nonzero exit code if it fails:
       logged, not held to 5 %: br's graph walk toward a k-mer the
       genome does not hold runs to the end of a branch-free genome, the
       device caps it and about a fifth of the reads go to the host
-      (PERF.md);
+      (PERF.md); its output check takes a seeded TRUSTED_HOST_SAMPLE of
+      those host reads beside the sample;
    b. the counted set, `-i solid21.csv -f csv`: the reads' 21-mers seen
       more than twice (numpy), written as a k-mer count CSV, failing on
       more than 5 % fallbacks; the `_h` kernels against their
@@ -118,11 +119,36 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    dense_probe_h at k = 31 on a sorted table
    of 2^27 entries (1 GiB, past the L2: the genome's k-mers and random
    ones, drawn on the card) with its index, checked and timed.
+12. several devices (mesh_phase): D = max(4, device count) shards placed
+   round robin over the cards (all four on one card where it is the
+   only one); K10 (merge_counts) on the corpus's shard counters at w = 2
+   (k = 13, a = 2) and w = 8 (the u8 view, a = 254), and K11a/K11b at
+   2^20 and 2^18 codes carrying bits above the 2-bit code, each held
+   exactly against its plain version and timed as in 4 against its
+   bound; count_sharded at k = 13 over the whole corpus, launch counts
+   set to 0 just before (the u8 entry of K10 in the kernel line takes
+   its launches), equal to the host Counter's u8 counts;
+   solid_sharded at k = 13 and 17 (a = 2) over the whole corpus,
+   its bits compared on the card with build_set's one-device build,
+   timed, with its peak device memory; the mesh path, with every launch
+   count set to 0 just before: solid_sharded at k = 13, then the default
+   chain over the whole corpus through a corrector with the mesh set,
+   byte-equal to phase 5's output with the same fallbacks and wide
+   retries, reported as phase 5 is; the k = 21 counted set of phase 11
+   through the mesh on its first N_MESH_LARGE reads (the sorted table
+   replicated), byte-equal to the one-device corrector's output, each
+   run's correct_s split into its passes and its host engine; then two
+   processes (gloo, each on card rank % count) correcting their stripes
+   with run_correction_striped and then run_correction_ranged, the set
+   from count_stripe_merged at k = 13 (held equal to the host
+   Counter(13, uint32)), each child under CHILD_TIMEOUT: the merged files
+   byte-equal to phase 5's one-process output.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
 count device kernels (two a call for chain_splice, a walk kernel and a
-copy kernel).  The last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
+copy kernel); K11's entries at 2^20 and 2^18 split the main path's
+launches by chunk size (one a wide sibling's chunk at 2^18).  The last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 br_tpu_torch package beside it, the script exits nonzero and prints no
 result.
 """
@@ -153,6 +179,12 @@ N17, SAMPLE17, K8_READS = 2000, 100, 200
 #: K1 checks past the L2 (2^27 entries, 1 GiB)
 K_LARGE, SAMPLE_LARGE = 21, 100
 K_BIG, BIG_ENTRIES = 31, 1 << 27
+#: host reads of the trusted set's path held to the oracle (a seeded
+#: sample of its ~410; checking all took ~150 s of the script's 1200)
+TRUSTED_HOST_SAMPLE = 100
+#: reads of the corpus the k = 21 set corrects through the mesh; seconds
+#: a child process of the two-process check may take
+N_MESH_LARGE, CHILD_TIMEOUT = 500, 300
 MAX_FALLBACK = 0.05
 #: the script's start (perf_counter), for the phase clock
 T0 = time.perf_counter()
@@ -180,6 +212,12 @@ KERNEL_META = {
                    "br_tpu/set/device_build.py:109"),
     "hash_probe": ("br_tpu_torch/csrc/hash_probe.cu",
                    "br_tpu/correct/device_codec.py:160"),
+    "merge_counts": ("br_tpu_torch/csrc/merge_counts.cu",
+                     "br_tpu/parallel/mesh.py:70"),
+    "unpack_codes": ("br_tpu_torch/csrc/pack_codes.cu",
+                     "br_tpu/correct/engine3.py:1951"),
+    "pack_codes": ("br_tpu_torch/csrc/pack_codes.cu",
+                   "br_tpu/correct/engine3.py:1961"),
 }
 
 
@@ -340,63 +378,18 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
     return visited, hi - lo, cum[hi] - cum[lo]
 
 
-#: the argument letters of K8's entry points in a tree whose counts are
-#: u32 (commit f531983's csrc: no counter width or abundance in the
-#: count, the pack taking groups of 128 counts and a)
-K8_U32_SIGS = {"solid_count": "plpilill" + "p" + "p",
-               "solid_count64": "plpilill" + "p" + "p",
-               "solid_pack": "plipi" + "p"}
-
-
-def k8_u32_build(lib, batches, k, a, max_count_bytes=4 << 30):
-    """The whole K8 build of a tree with u32 counts (``lib``, its entry
-    points bound by K8_U32_SIGS), as that tree's build_words drove it:
-    the half-space in partitions of at most ``max_count_bytes`` of u32
-    counts (8 of 2^30 at k = 17), K8a for each batch, then K8b writing
-    the partition's words and clearing its counts where another
-    partition follows.  Returns the bitfield's int32 words."""
-    import torch
-
-    from br_tpu_torch import kernels
-    from br_tpu_torch.set import device_build as db
-
-    dev = batches[0].codes.device
-    stream = kernels.stream_of(dev)
-    half = 1 << (2 * k - 1)
-    cap = max(128, max_count_bytes // 4)
-    psize = min(1 << (cap.bit_length() - 1), max(128, half))
-    nparts = -(-half // psize)
-    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
-    words = torch.empty(nparts * psize // 32, dtype=torch.int32, device=dev)
-    count = lib.br_solid_count64 if k > 15 else lib.br_solid_count
-    for part in range(nparts):
-        for p in batches:
-            check(count(p.codes.data_ptr(), p.codes.shape[0] // 4,
-                        p.starts.data_ptr(), p.starts.shape[0], p.n_bases,
-                        k, part * psize, psize, counts.data_ptr(),
-                        stream) == 0, "baseline K8a launch failed")
-        out = words[part * psize // 32:]
-        check(lib.br_solid_pack(counts.data_ptr(), psize // 128,
-                                max(-1, min(a, 256)), out.data_ptr(),
-                                int(part + 1 < nparts), stream) == 0,
-              "baseline K8b launch failed")
-    return words[:db.half_words(k)]
-
-
 def load_baseline(csrc):
     """K1, K2, K5, K6, K7, K3, K4 and K9 (every instantiation: 32-bit,
     64-bit and sorted-table) as built from another tree's ``csrc`` (the
     parent commit's: ``git archive <commit> br_tpu_torch/csrc``), those
     whose source or headers differ from this tree's, called through this
     tree's wrappers; and K8 (``solid_build.cu``), where it differs, as
-    ``"k8"``: {"form", "lib", "build"}, its whole build on a list of
-    batches, k and a.  A K8 with u32 counts (commit f531983's: form
-    ``u32``) is bound with its own entry points (K8_U32_SIGS) and driven
-    as that tree drove it (k8_u32_build); one with this tree's entry
-    points (form ``narrow``) through this tree's build_words.  Built
-    with this tree's nvcc flags, one nvcc each, all at once; their calls
-    are not counted in kernels.LAUNCHES.  Returns {kernel name: function
-    with the arguments of the kernel's wrapper}."""
+    ``"k8"``: {"build"}, its whole build on batches grouped by shard, k and a,
+    through this tree's build_words (the other tree's K8 has this tree's
+    entry points).  Built with this tree's nvcc flags, one nvcc each, all
+    at once; their calls are not counted in kernels.LAUNCHES.  Returns
+    {kernel name: function with the arguments of the kernel's
+    wrapper}."""
     from pathlib import Path
 
     from br_tpu_torch import kernels
@@ -432,24 +425,17 @@ def load_baseline(csrc):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             out)
     libs = {}
-    u32 = False
     for name, (proc, out) in procs.items():
         log_, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"baseline {name} build failed:\n{log_}")
         lib = ctypes.CDLL(str(out))
         if name == "solid_count":
             names = ["solid_count", "solid_count64", "solid_pack"]
-            u32 = b"int w, int a" not in (Path(csrc)
-                                         / "solid_build.cu").read_bytes()
         else:
             names = ([name] + ([name + "64"] if name in kernels.WIDE
                                else [])
                      + ([name + "_h"] if name in kernels.HASHED else []))
         kernels.bind(lib, names)
-        if u32 and name == "solid_count":
-            for n in names:
-                fn = getattr(lib, kernels.KERNELS[n][1])
-                fn.argtypes = [kernels._CTYPES[ch] for ch in K8_U32_SIGS[n]]
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -472,11 +458,7 @@ def load_baseline(csrc):
     out = {name: through(name, fn) for name, fn in wrappers.items()
            if name != "solid_count"}
     if "solid_count" in wrappers:
-        lib = libs["solid_count"]
-        out["k8"] = {
-            "form": "u32" if u32 else "narrow", "lib": lib,
-            "build": ((lambda b, k, a: k8_u32_build(lib, b, k, a)) if u32
-                      else through("solid_count", db.build_words))}
+        out["k8"] = {"build": through("solid_count", db.build_words)}
     return out
 
 
@@ -1033,8 +1015,7 @@ def instrument(corrector):
 
     def first_chunk(seqs, idxs, starts, fn=wide._chunk_arrays):
         out = fn(seqs, idxs, starts)
-        if not retry:
-            retry.append(out)
+        retry.append(None if retry else out)
         return out
     wide._chunk_arrays = first_chunk
     for cor, prof in ((corrector, "default"), (wide, "wide")):
@@ -1160,11 +1141,13 @@ def _oracle_read(i):
                         two_side=False)
 
 
-def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
+def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None,
+                 host_sample=None):
     """A seeded sample of ``sample`` (SAMPLE) reads plus every
-    host-corrected read against the port's oracle of ``chain`` at k, the
-    reads spread over one forked process a host core (the children run
-    the Python oracle only, and read the set the parent holds)."""
+    host-corrected read (or a seeded ``host_sample`` of them) against the
+    port's oracle of ``chain`` at k, the reads spread over one forked
+    process a host core (the children run the Python oracle only, and
+    read the set the parent holds)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1177,6 +1160,8 @@ def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
     rng = np.random.default_rng(SEED)
     picked = set(rng.choice(len(seqs), SAMPLE if sample is None else sample,
                             replace=False).tolist())
+    if host_sample is not None and host_sample < len(host):
+        host = rng.choice(sorted(host), host_sample, replace=False).tolist()
     picked |= set(host)
     solid = host_set(solid)
     check(solid.k == k, f"{label}: the set's k is {solid.k}, not {k}")
@@ -1201,31 +1186,6 @@ def oracle_check(label, out, seqs, chain, solid, host, k=K, sample=None):
 #: abundances K8 is checked at on the card: every counter width (1, 2, 4
 #: and 8 bits) and both ends, where nothing is counted
 ABUNDANCES = (-1, 0, 1, 2, 3, 6, 7, 14, 15, 254, 255, 256)
-
-
-def k8_u32_kernels(lib, p, k, a, psize):
-    """(count, pack) of a baseline K8 with u32 counts (k8_u32_build's
-    entry points) on one batch: K8a counting the first partition of
-    ``psize`` counts, K8b packing it (clearing it with ``clear``)."""
-    import torch
-
-    from br_tpu_torch import kernels
-
-    dev = p.codes.device
-    stream = kernels.stream_of(dev)
-    counts = torch.zeros(psize, dtype=torch.int32, device=dev)
-    words = torch.empty(psize // 32, dtype=torch.int32, device=dev)
-    fn = lib.br_solid_count64 if k > 15 else lib.br_solid_count
-
-    def count():
-        fn(p.codes.data_ptr(), p.codes.shape[0] // 4, p.starts.data_ptr(),
-           p.starts.shape[0], p.n_bases, k, 0, psize, counts.data_ptr(),
-           stream)
-
-    def pack(clear):
-        lib.br_solid_pack(counts.data_ptr(), psize // 128, a,
-                          words.data_ptr(), int(clear), stream)
-    return counts, count, pack
 
 
 def k8_sweep(p, k, sync, reps=10):
@@ -1257,7 +1217,7 @@ def k8_sweep(p, k, sync, reps=10):
             lambda: db.count_kmers(p, k, 0, a, counts), reps, sync,
             queued=True)
         del counts
-        line["build_ms"] = cuda_ms(lambda: db.build_words([p], k, a), reps,
+        line["build_ms"] = cuda_ms(lambda: db.build_words([[p]], k, a), reps,
                                    sync, queued=True)
         log("K8 sweep: " + json.dumps(line))
         torch.cuda.empty_cache()
@@ -1374,20 +1334,20 @@ def solid_checks(seqs, k, device, sync, reps=10, baseline=None):
     sync()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    got = db.build_words([p], k, a)
+    got = db.build_words([[p]], k, a)
     sync()
     build_mem = torch.cuda.max_memory_allocated() - base_mem
     check(torch.equal(got, want), f"K8 at k={k}: the build differs from "
                                   "the plain build")
     del got
-    build = {"build_ms": cuda_ms(lambda: db.build_words([p], k, a), reps,
+    build = {"build_ms": cuda_ms(lambda: db.build_words([[p]], k, a), reps,
                                  sync, queued=True),
              "build_bound_ms": (in_bytes + db.half_words(k) * 4) * ms,
              "zero_ms": zero_ms, "build_peak_bytes": build_mem,
              "counter_bytes": psize * w // 8, "partitions": nparts}
     k8 = (baseline or {}).get("k8")
     if k8:
-        kb = lambda: k8["build"]([p], k, a)  # noqa: E731
+        kb = lambda: k8["build"]([[p]], k, a)  # noqa: E731
         torch.cuda.empty_cache()
         sync()
         base_mem = torch.cuda.memory_allocated()
@@ -1398,21 +1358,11 @@ def solid_checks(seqs, k, device, sync, reps=10, baseline=None):
         old_mem = torch.cuda.max_memory_allocated() - base_mem
         torch.cuda.empty_cache()
         t = [cuda_ms(f, reps, sync, queued=True)
-             for f in (kb, lambda: db.build_words([p], k, a),
-                       lambda: db.build_words([p], k, a), kb)]
+             for f in (kb, lambda: db.build_words([[p]], k, a),
+                       lambda: db.build_words([[p]], k, a), kb)]
         build.update(baseline_build_ms=[t[0], t[3]],
                      build_ms_pair=[t[1], t[2]],
                      baseline_build_peak_bytes=old_mem)
-        if k8["form"] == "u32":
-            opsize = min(1 << 30, half)
-            counts, count, pack = k8_u32_kernels(k8["lib"], p, k, a, opsize)
-            res[name]["baseline_ms"] = cuda_ms(count, reps, sync,
-                                               queued=True,
-                                               setup=counts.zero_)
-            res[pname]["baseline_ms"] = cuda_ms(
-                lambda: pack(opsize < half), reps, sync, queued=True)
-            res[pname]["baseline_clear"] = opsize < half
-            del counts, count, pack
     for r in (res[name], res[pname]):
         r.update(build)
     del want
@@ -1438,7 +1388,7 @@ def solid_checks(seqs, k, device, sync, reps=10, baseline=None):
     # every abundance, on the same batch
     for ab in ABUNDANCES:
         before = dict(kernels.LAUNCHES)
-        got = db.build_words([p], k, ab)
+        got = db.build_words([[p]], k, ab)
         check(torch.equal(got, db.solid_words_plain([p], k, ab)),
               f"K8 at k={k}, a={ab}: the build differs from the plain "
               "build")
@@ -1497,10 +1447,12 @@ def path_report(label, args, solid, corrector, n, count_s, correct_s,
 #: the kernels each path launches
 NEED13 = ("dense_probe", "one_sites", "two_sites", "walk_sites",
           "greedy_sites", "chain_splice", "reverse_slots", "solid_count",
-          "solid_pack")
+          "solid_pack", "unpack_codes", "pack_codes")
 NEED17 = ("dense_probe64", "one_sites64", "two_sites64", "walk_sites64",
           "greedy_sites64", "chain_splice", "reverse_slots", "solid_count64",
-          "solid_pack")
+          "solid_pack", "unpack_codes", "pack_codes")
+#: the mesh path's: the k = 13 path's and K10
+NEED_MESH = NEED13 + ("merge_counts",)
 
 
 #: further numbers a kernel's entry of the summary line carries, where
@@ -1511,7 +1463,8 @@ ENTRY_EXTRAS = ("pr8_bound_ms", "old_bound_ms", "build_ms",
 
 
 NEED_LARGE = ("dense_probe_h", "one_sites_h", "two_sites_h", "walk_sites_h",
-              "greedy_sites_h", "chain_splice", "reverse_slots")
+              "greedy_sites_h", "chain_splice", "reverse_slots",
+              "unpack_codes", "pack_codes")
 
 
 def corpus_genome():
@@ -1739,7 +1692,7 @@ def big_table_checks(chunk, device, sync, baseline=None):
 
 
 def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
-                card, max_fallback):
+                card, max_fallback, host_sample=None):
     """One `large-kmer -i src -f fmt -k K_LARGE` run through the CLI's
     entry points over the whole corpus: its numbers, the set's size, its
     bucket index (and the time of the corrector's own index build,
@@ -1748,8 +1701,8 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
     of NEED_LARGE not launched,
     on more than ``max_fallback`` of the reads on the host (None: not
     held to a limit) or on the output check (the SAMPLE_LARGE sample and
-    every host read).  Returns (solid, corrector, instrumentation, launch
-    counts)."""
+    every host read, or a seeded ``host_sample`` of them).  Returns
+    (solid, corrector, instrumentation, launch counts)."""
     import torch
 
     from br_tpu_torch import DEFAULT_CORRECTIONS, cli, runtime
@@ -1809,7 +1762,8 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
         "set_build_s": count_s, "corrector_build_s": inst["make_s"],
         "max_memory_allocated": peak}))
     oracle_check(f"{label} default chain", out, seqs, args.corrections,
-                 solid, corrector.last_host, k=k, sample=SAMPLE_LARGE)
+                 solid, corrector.last_host, k=k, sample=SAMPLE_LARGE,
+                 host_sample=host_sample)
     return solid, corrector, inst, launches
 
 
@@ -1840,7 +1794,8 @@ def large_k_path(workdir, fa, seqs, n_bases, device, sync, card,
     solid, corrector, _inst, _launches = large_k_run(
         f"k={k} large-kmer -f fasta path (the trusted set: the genome's "
         f"{k}-mers)", workdir, fa, genome_fa, "fasta", seqs, n_bases,
-        device, sync, card, max_fallback=None)
+        device, sync, card, max_fallback=None,
+        host_sample=TRUSTED_HOST_SAMPLE)
     del solid, corrector
     torch.cuda.empty_cache()
 
@@ -1870,16 +1825,355 @@ def large_k_path(workdir, fa, seqs, n_bases, device, sync, card,
     checks.update(hash_probe_check(
         f"hash_probe[k={k},path table]", table, dc.rolling_kmers(codes, k),
         k, sync, baseline=baseline, index_ms=inst["index_build_ms"]))
-    del solid, corrector, table
+    del corrector, table
     torch.cuda.empty_cache()
     checks.update(big_table_checks(first, device, sync, baseline))
-    return checks, launches
+    return checks, launches, solid, os.path.join(workdir,
+                                                 "out_large_csv.fa")
+
+
+def k10_check(name, rows, w, cap, sync, reps=20):
+    """K10 on the shards' counter rows (D, n) against its plain version
+    (exact), timed as the kernel checks time them; bound: the D rows read
+    and one written, (D + 1) n 4 bytes."""
+    import torch
+
+    from br_tpu_torch.parallel import mesh as pm
+    from br_tpu_torch.set import device_build as db
+
+    d, n = rows.shape
+    got = pm.merge_counts(rows, w, cap)
+    sync()
+    t0 = time.perf_counter()
+    want = pm.merge_counts_plain(rows, w, cap)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want), f"{name}: K10 differs from its plain "
+                                  "version")
+    fields = db.counter_fields(got, w)
+    r = {"ms": cuda_ms(lambda: pm.merge_counts(rows, w, cap, got), reps,
+                       sync, queued=True),
+         "plain_ms": plain_ms, "max_abs_err": 0, "library_ms": None,
+         "bound_ms": (d + 1) * n * 4 * 1e3 / HBM_BYTES_PER_S}
+    log(f"kernel {name}: " + json.dumps({
+        "kernel": name, "shards": d, "words": n, "counter_bits": w,
+        "cap": cap, "saturated_counters": int((fields == cap).sum()),
+        "nonzero_counters": int((fields > 0).sum()),
+        "kernel_ms": r["ms"], "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "ms_over_bound": r["ms"]
+        / r["bound_ms"]}))
+    return r
+
+
+def k11_checks(n, device, sync, reps=20):
+    """K11a and K11b at n codes (bytes of 0-255: bits above the 2-bit code
+    that the pack strips) against their plain versions (exact), timed as
+    the kernel checks time them; bound: n / 4 + n bytes."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+
+    rng = np.random.default_rng(n)
+    codes = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(
+        device)
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4,
+                                           dtype=np.uint8)).to(device)
+    out = {}
+    tag = "" if n == 1 << 20 else f"[2^{n.bit_length() - 1}]"
+    for name, fn, plain, arg in (
+            ("unpack_codes", lambda x: dc.unpack_codes(x, n),
+             lambda x: dc.unpack_codes_plain(x, n), packed),
+            ("pack_codes", dc.pack_codes, dc.pack_codes_plain, codes)):
+        got = fn(arg)
+        sync()
+        t0 = time.perf_counter()
+        want = plain(arg)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got, want), f"{name} at {n} codes differs from "
+                                      "its plain version")
+        r = {"ms": cuda_ms(lambda: fn(arg), reps, sync, queued=True),
+             "call_ms": cuda_ms(lambda: fn(arg), reps, sync),
+             "plain_ms": plain_ms, "max_abs_err": 0, "library_ms": None,
+             "bound_ms": (n // 4 + n) * 1e3 / HBM_BYTES_PER_S}
+        log(f"kernel {name}{tag}: " + json.dumps({
+            "kernel": name, "codes": n, **r,
+            "ms_over_bound": r["ms"] / r["bound_ms"]}))
+        out[name + tag] = r
+    return out
+
+
+def mesh_child(spec, workdir, line_width):
+    """One process of the two-process check (``--mesh-child rank,n,port``):
+    join the gloo group on card rank % count, count the corpus's stripe
+    and merge the counts (count_stripe_merged, k = 13; process 0 saves
+    them), threshold them into the set (a = 2, the u8 view), correct the
+    stripe with run_correction_striped, then run_correction_ranged; print
+    its times as one JSON line."""
+    import torch
+
+    from br_tpu_torch import DEFAULT_CORRECTIONS
+    from br_tpu_torch.io.fasta import read_records
+    from br_tpu_torch.parallel import multihost
+    from br_tpu_torch.parallel.mesh import counts_to_u8
+    from br_tpu_torch.set.solid import SolidSet
+
+    rank, n, port = map(int, spec.split(","))
+    multihost.initialize(f"localhost:{port}", n, rank, timeout_s=120)
+    fa = os.path.join(workdir, "reads.fa")
+    t = {"rank": rank, "device": str(multihost.local_device(rank))}
+    t0 = time.perf_counter()
+    seqs = [s for _d, s, _q in read_records(fa)]
+    merged = multihost.count_stripe_merged(seqs, K, rank, n)
+    t["count_stripe_merged_s"] = time.perf_counter() - t0
+    if rank == 0:
+        np.save(os.path.join(workdir, "merged13.npy"), merged)
+    solid = SolidSet.from_count(K, counts_to_u8(merged), 2)
+    chain = list(DEFAULT_CORRECTIONS)
+    for fn, tag in ((multihost.run_correction_striped, "striped"),
+                    (multihost.run_correction_ranged, "ranged")):
+        t0 = time.perf_counter()
+        got = fn(fa, os.path.join(workdir, f"out_{tag}.fa"), solid, chain,
+                 C, MS, False, rank, n, line_width=line_width)
+        torch.cuda.synchronize()
+        t[f"{tag}_s"], t[f"{tag}_records"] = time.perf_counter() - t0, got
+    t["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    multihost.shutdown()
+    print("mesh child: " + json.dumps(t), flush=True)
+    return 0
+
+
+def two_processes(workdir, want, line_width, host_counts):
+    """The two-process check: two children of this script (mesh_child),
+    each under CHILD_TIMEOUT; a child's nonzero exit or time out fails.
+    The merged striped and ranged outputs must equal ``want`` (phase 5's
+    one-process output) and the merged counts ``host_counts`` (the host
+    Counter(13, uint32)'s)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child",
+         f"{r},2,{port}", "--workdir", workdir, "--line-width",
+         str(line_width)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = []
+    try:
+        deadline = time.monotonic() + CHILD_TIMEOUT
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"two processes: a child ran past "
+                                   f"{CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"two processes: child {r} exited "
+                                 f"{p.returncode}:\n{o[-4000:]}")
+        for ln in o.splitlines():
+            if ln.startswith("mesh child: "):
+                log(f"two processes, {ln}")
+    for tag in ("striped", "ranged"):
+        with open(os.path.join(workdir, f"out_{tag}.fa"), "rb") as fh:
+            check(fh.read() == want, f"two processes: the {tag} output "
+                                     "differs from the one-process output")
+    check(np.array_equal(np.load(os.path.join(workdir, "merged13.npy")),
+                         host_counts),
+          "two processes: count_stripe_merged differs from the host "
+          "Counter(13, uint32)")
+    log("two processes: " + json.dumps({
+        "processes": 2, "wall_s": wall, "striped_equal": True,
+        "ranged_equal": True, "count_stripe_merged_equal": True}))
+
+
+def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
+               large):
+    """Phase 12, several devices (see the module's text): ``main`` holds
+    phase 5's args, output path and corrector stats; ``large`` the k = 21
+    counted set and its output.  Returns (checks, launch counts of the
+    mesh path, launch counts of count_sharded)."""
+    import torch
+
+    from br_tpu_torch import cli, kernels, runtime
+    from br_tpu_torch.count import Counter
+    from br_tpu_torch.io.fasta import read_records
+    from br_tpu_torch.parallel import mesh as pm
+    from br_tpu_torch.set import device_build as db
+
+    count = torch.cuda.device_count()
+    D = max(4, count)
+    mesh = pm.data_parallel_mesh([i % count for i in range(D)])
+    log("mesh: " + json.dumps({"shards": D, "devices": count,
+                               "placement": [str(d) for d in mesh]}))
+    checks = {}
+    parts = np.array_split(np.arange(len(seqs)), D)
+    for a, name in ((2, "merge_counts"), (254, "merge_counts[u8]")):
+        w = db.counter_bits(a)
+        rows = torch.zeros((D, (1 << (2 * K - 1)) * w // 32),
+                           dtype=torch.int32, device=device)
+        for d, idx in enumerate(parts):
+            db.count_kmers(db.pack_reads([seqs[i] for i in idx], K, device),
+                           K, 0, a, rows[d])
+        checks[name] = k10_check(name, rows, w, a + 1, sync)
+        del rows
+    for n in (1 << 20, 1 << 18):
+        checks.update(k11_checks(n, device, sync))
+    torch.cuda.empty_cache()
+
+    # count_sharded over the corpus (K8a into each shard's 8-bit counters,
+    # K10 at w = 8), counts set to 0 just before, against the host
+    # Counter's u8 view
+    host_counts = Counter(K, count_dtype=np.uint32).count_sequences(
+        seqs).counts
+    lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+    batch = np.zeros((len(seqs), int(lens.max())), np.uint8)
+    for i, s in enumerate(seqs):
+        batch[i, :len(s)] = np.frombuffer(s, np.uint8)
+    kernels.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    got = pm.count_sharded(mesh, batch, lens, K)
+    sync()
+    count_sharded_s = time.perf_counter() - t0
+    launches_u8 = dict(kernels.LAUNCHES)
+    check(np.array_equal(got.cpu().numpy(), pm.counts_to_u8(host_counts)),
+          "count_sharded differs from the host Counter's u8 counts")
+    check(launches_u8["merge_counts"] == 1 and launches_u8["solid_count"]
+          == D, f"count_sharded launched K10 {launches_u8['merge_counts']} "
+          f"and K8a {launches_u8['solid_count']} times over {D} shards")
+    log("count_sharded: " + json.dumps({
+        "k": K, "shards": D, "reads": len(seqs), "equal": True,
+        "count_sharded_s": count_sharded_s, "launches": {
+            n: c for n, c in launches_u8.items() if c}}))
+    del batch, got
+
+    for k in (K, 17):
+        want = cli.device_set([fa], k, 2, device).words
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = pm.solid_sharded(mesh, seqs, k, 2)
+        sync()
+        sharded_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        check(torch.equal(got.words, want), f"solid_sharded at k={k}: the "
+              "bits differ from build_set's one-device build")
+        log(f"solid_sharded at k={k}: " + json.dumps({
+            "k": k, "a": 2, "shards": D, "reads": len(seqs),
+            "equal": True, "solid_sharded_s": sharded_s,
+            "peak_bytes": peak, "table_bytes": want.numel() * 4}))
+        del got, want
+        torch.cuda.empty_cache()
+
+    # the mesh path: the set by solid_sharded, the corpus through the mesh
+    args, out_main, stats = main["args"], main["out"], main["stats"]
+    out = os.path.join(workdir, "out_mesh.fa")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    solid = pm.solid_sharded(mesh, seqs, K, 2)
+    sync()
+    count_s = time.perf_counter() - t0
+    cor = runtime.make_corrector(solid, args.corrections, args.confirm,
+                                 args.max_search, device=device)
+    cor.mesh = mesh
+    inst = {}
+    inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+    t0 = time.perf_counter()
+    n = runtime.run_correction([fa], [out], solid, args.corrections,
+                               args.confirm, args.max_search, args.two_side,
+                               record_buffer=args.record_buffer,
+                               line_width=args.line_width, corrector=cor)
+    sync()
+    correct_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(n == N_READS, f"mesh path wrote {n} records, expected {N_READS}")
+    path_report(f"mesh path ({D} shards)", args, solid, cor, n, count_s,
+                correct_s, launches, inst, n_bases, card, NEED_MESH)
+    with open(out, "rb") as fh, open(out_main, "rb") as fm:
+        want = fm.read()
+        check(fh.read() == want, "mesh path: the output differs from "
+                                 "phase 5's")
+    for key in ("fallback", "wide_retried", "capped", "impure", "too_long",
+                "chunks"):
+        check(cor.last_stats[key] == stats[key],
+              f"mesh path: {key} {cor.last_stats[key]}, phase 5 "
+              f"{stats[key]}")
+    log("mesh path: " + json.dumps({
+        "equal_to_phase5": True, "shards": D,
+        "placement": [str(d) for d in mesh], "max_memory_allocated": peak,
+        "allocated_before": base, "peak_over_before": peak - base,
+        "table_copies": len(mesh.devices)}))
+    del solid, cor, inst
+    torch.cuda.empty_cache()
+
+    # the k = 21 counted set through the mesh: the sorted table replicated
+    hset, out21 = large
+    fa500 = os.path.join(workdir, "reads_mesh21.fa")
+    with open(fa500, "wb") as fh:
+        for i, s in enumerate(seqs[:N_MESH_LARGE]):
+            fh.write(b">r%d\n%s\n" % (i, s))
+    res = {}
+    for tag, m in (("single", None), ("mesh", mesh)):
+        cor = runtime.make_corrector(hset, args.corrections, args.confirm,
+                                     args.max_search, device=device)
+        cor.mesh = m
+        kept, oracle_s, _retry = instrument(cor)
+        o = os.path.join(workdir, f"out_mesh21_{tag}.fa")
+        t0 = time.perf_counter()
+        runtime.run_correction([fa500], [o], hset, args.corrections,
+                               args.confirm, args.max_search, args.two_side,
+                               line_width=args.line_width, corrector=cor)
+        sync()
+        with open(o, "rb") as fh:
+            res[tag] = (fh.read(), dict(cor.last_stats), {
+                "correct_s": time.perf_counter() - t0,
+                "pass_device_s": sum(r["device_s"] for r in
+                                     cap_reasons(kept).values()),
+                "host_oracle_s": sum(oracle_s)})
+        if m is not None:
+            tables = cor._mesh_tables[1]
+            check(all(isinstance(t, type(cor.table)) for t in tables),
+                  "k=21 mesh: the sorted table was not replicated")
+        del cor
+    check(res["mesh"][0] == res["single"][0], "k=21 mesh: the output "
+          "differs from the one-device corrector's")
+    check(res["mesh"][1] == res["single"][1], f"k=21 mesh: last_stats "
+          f"{res['mesh'][1]} against {res['single'][1]}")
+    ref = [s for _d, s, _q in read_records(out21)][:N_MESH_LARGE]
+    got = [s for _d, s, _q in read_records(
+        os.path.join(workdir, "out_mesh21_mesh.fa"))]
+    check(got == ref, "k=21 mesh: the output differs from phase 11's")
+    log(f"k={K_LARGE} counted set through the mesh: " + json.dumps({
+        "reads": N_MESH_LARGE, "equal": True, "shards": D,
+        "last_stats": res["mesh"][1], "mesh": res["mesh"][2],
+        "single": res["single"][2]}))
+    torch.cuda.empty_cache()
+
+    log(f"phase clock: two processes at {time.perf_counter() - T0:.0f} s")
+    two_processes(workdir, want, args.line_width, host_counts)
+    return checks, launches, launches_u8
 
 
 def main_path(workdir, device, sync, card, build, base_dir=None):
     """Corpus, the k = 13 solid set on the host and by K8, kernel checks,
     the default-chain CLI path and its output check, then the `-c one`
-    path, then the k = 17 phases (k17_path).  ``build`` is called before
+    path, then the k = 17 phases (k17_path), large k (large_k_path) and
+    several devices (mesh_phase).  ``build`` is called before
     the first kernel is needed; ``base_dir`` is a baseline's csrc
     directory or None.  Returns the per-kernel summary entries."""
     import torch
@@ -1945,6 +2239,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     check(n == N_READS, f"wrote {n} records, expected {N_READS}")
     path_report("main path", args, solid, corrector, n, count_s, correct_s,
                 launches, inst, n_bases, card, NEED13, set_times=k8_times)
+    main = {"args": args, "out": out, "stats": dict(corrector.last_stats)}
     log("main path device memory: " + json.dumps({
         "max_memory_allocated": peak,
         "table_bytes": solid.words.numel() * 4}))
@@ -1955,6 +2250,16 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         f"host Counter (phase 3)")
     retry = inst["retry"]
     check(bool(retry), "the main path retried no chunk on the wide sibling")
+    # K11's launches by chunk size: one unpack and one pack a chunk, the
+    # wide sibling's (one a retry chunk) at 2^18, the rest at 2^20
+    wide, k11 = len(retry), ("unpack_codes", "pack_codes")
+    check(launches["unpack_codes"] == launches["pack_codes"] > wide,
+          f"K11 on the main path: {launches['unpack_codes']} unpacks, "
+          f"{launches['pack_codes']} packs, {wide} wide chunks")
+    launches_2e18 = dict.fromkeys(k11, wide)
+    launches_2e20 = {n: launches[n] - wide for n in k11}
+    log("main path K11 launches by chunk size: " + json.dumps(
+        {"2^20": launches_2e20, "2^18": launches_2e18}))
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
                                 sync, kind="retry", baseline=baseline))
     lw_table, lw_chunk = long_walk_chunk(device)
@@ -1981,7 +2286,8 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         "last_stats": st1, "launches": launches1}))
     check(n1 == N_ONE, f"-c one wrote {n1} records, expected {N_ONE}")
     for name in ("dense_probe", "one_sites", "chain_splice",
-                 "reverse_slots", "solid_count", "solid_pack"):
+                 "reverse_slots", "solid_count", "solid_pack",
+                 "unpack_codes", "pack_codes"):
         check(launches1[name] > 0, f"-c one: kernel {name} not launched")
     check(st1["fallback"] / max(1, st1["total"]) <= MAX_FALLBACK,
           f"-c one: {st1['fallback']} of {st1['total']} reads to the host")
@@ -1997,21 +2303,31 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     del checks17
     torch.cuda.empty_cache()
     log(f"phase clock: large k at {time.perf_counter() - T0:.0f} s")
-    checks_l, launches_l = large_k_path(workdir, fa, seqs, n_bases, device,
-                                        sync, card, baseline)
-    log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
+    checks_l, launches_l, hset, out21 = large_k_path(
+        workdir, fa, seqs, n_bases, device, sync, card, baseline)
     checks.update(checks_l)
+    log(f"phase clock: several devices at {time.perf_counter() - T0:.0f} s")
+    checks_m, launches_m, launches_u8 = mesh_phase(
+        workdir, fa, seqs, n_bases, device, sync, card, main, (hset, out21))
+    log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
+    checks.update(checks_m)
+    # the launches of a kernel's summary entry: K9's on the large-k path,
+    # K10's on the mesh path (its u8 entry's by count_sharded), K11's on
+    # the main path at the entry's chunk size, the rest on the main path
+    own = {"hash_probe": launches_l, "merge_counts": launches_m,
+           **dict.fromkeys(k11, launches_2e20)}
     entries = []
     for name, (source, replaces) in KERNEL_META.items():
         # a kernel's k = 17 entry: its 64-bit instantiation, or (K8b,
         # which holds no k-mer) the same kernel's k = 17 launches; its
         # large-k entry: its sorted-table instantiation, and K9's, with
         # the large-k path's launches
-        for nm, cnt, key in ((name, launches_l if name == "hash_probe"
-                              else launches, name),
+        for nm, cnt, key in ((name, own.get(name, launches), name),
                              (name + "64", launches17, name + "64"),
                              (name + "[k=17]", launches17, name),
-                             (name + "_h", launches_l, name + "_h")):
+                             (name + "_h", launches_l, name + "_h"),
+                             (name + "[u8]", launches_u8, name),
+                             (name + "[2^18]", launches_2e18, name)):
             if nm not in checks:
                 continue
             r = checks[nm]
@@ -2044,7 +2360,7 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
     k = 17
     few = seqs[:K8_READS]
     batches = [db.pack_reads(few, k, device)]
-    got = db.build_words(batches, k, 2)
+    got = db.build_words([batches], k, 2)
     want = db.solid_words_plain(batches, k, 2)
     nz = torch.nonzero(want).squeeze(1)
     check(torch.equal(torch.nonzero(got).squeeze(1), nz)
@@ -2114,7 +2430,15 @@ def main():
                          "this directory, those whose sources differ from "
                          "this tree's (the parent commit's csrc: git "
                          "archive <commit> br_tpu_torch/csrc)")
+    # one process of phase 12's two-process check (mesh_child)
+    ap.add_argument("--mesh-child", metavar="RANK,N,PORT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", help=argparse.SUPPRESS)
+    ap.add_argument("--line-width", type=int, default=80,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args()
+    if opts.mesh_child:
+        return mesh_child(opts.mesh_child, opts.workdir, opts.line_width)
     try:
         import torch
     except ImportError as e:

@@ -604,7 +604,7 @@ def test_solid_build_matches_plain(dev, k, a):
     w = db.counter_bits(a) if 0 <= a <= 254 else 1
     for cap in (db.DEFAULT_MAX_COUNT_BYTES, half * w // 8 // 32):
         before = dict(kernels.LAUNCHES)
-        got = db.build_words(batches, k, a, max_count_bytes=cap)
+        got = db.build_words([batches], k, a, max_count_bytes=cap)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         nparts = -(-half // db.partition_size(k, w, cap))
@@ -642,7 +642,7 @@ def test_solid_count_contention(dev, a):
         fields = db.counter_fields(counts, w)
         (idx,) = torch.nonzero(fields, as_tuple=True)
         assert idx.numel() == 1 and int(fields[idx]) == a + 1
-        got = db.build_words([p], k, a)
+        got = db.build_words([[p]], k, a)
         assert torch.equal(got, db.solid_words_plain([p], k, a))
         assert db.popcount_words(got) == 1
 
@@ -933,3 +933,204 @@ def test_hash_corrector_k21_on_card_matches_oracle(dev, two_side):
     methods = build_methods(FULL, hset, tc.C, tc.MS)
     assert got == [correct_read(r, methods, two_side) for r in reads]
     assert tcor.last_stats["fallback"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# Several shards and processes: K10 merge_counts, K11 pack/unpack, the
+# mesh and the striped and ranged paths.  One card holds every shard where
+# the machine has one.
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(d=4):
+    from br_tpu_torch.parallel import mesh as pm
+
+    n = torch.cuda.device_count()
+    return pm.data_parallel_mesh([i % n for i in range(d)])
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+def test_merge_counts_matches_plain(dev, w):
+    """K10 against its plain version for D = 1 to 4 shards, every cap of
+    the width's ends and middle, fields at and near the cap and at the
+    field's top, on rows whose length is a multiple of 4 (the vector
+    path) and not (the word path), into a new tensor and into a given
+    one."""
+    from br_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(w)
+    top = (1 << w) - 1
+    for d in (1, 2, 3, 4):
+        for n in (4096, 1027):
+            for cap in sorted({1, max(1, top // 2), top}):
+                f = rng.integers(max(0, cap - 2), top + 1, (d, n, 32 // w))
+                f[:, :64] = rng.integers(0, top + 1, (d, 64, 32 // w))
+                rows = sum(f[..., j].astype(np.uint64) << (w * j)
+                           for j in range(32 // w)).astype(np.uint32)
+                t = torch.from_numpy(rows.view(np.int32))
+                want = pm.merge_counts_plain(t, w, cap)
+                before = kernels.LAUNCHES["merge_counts"]
+                got = pm.merge_counts(t.to(dev), w, cap)
+                assert torch.equal(got.cpu(), want)
+                out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+                pm.merge_counts(t.to(dev), w, cap, out)
+                torch.cuda.synchronize()
+                assert torch.equal(out.cpu(), want)
+                assert kernels.LAUNCHES["merge_counts"] == before + 2
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 18, 4100, 4099])
+def test_pack_codes_kernels_match_plain(dev, n):
+    """K11a and K11b against their plain versions on codes of every byte
+    value (bits above the 2-bit code stripped by the pack): at the chunk
+    sizes, at a length that is no multiple of 16, on buffers one byte off
+    alignment (the byte path), and on rows of a batch."""
+    n -= n % 4
+    rng = np.random.default_rng(n)
+    codes = torch.from_numpy(rng.integers(0, 256, n + 4, dtype=np.uint8))
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4 + 4,
+                                           dtype=np.uint8))
+    cd, pd = codes.to(dev), packed.to(dev)
+    for lo in (0, 1):
+        c, p = codes[lo:lo + n], packed[lo:lo + n // 4]
+        before = (kernels.LAUNCHES["pack_codes"],
+                  kernels.LAUNCHES["unpack_codes"])
+        got_p = dc.pack_codes(cd[lo:lo + n])
+        got_c = dc.unpack_codes(pd[lo:lo + n // 4], n)
+        torch.cuda.synchronize()
+        assert torch.equal(got_p.cpu(), dc.pack_codes_plain(c))
+        assert torch.equal(got_c.cpu(), dc.unpack_codes_plain(p, n))
+        assert (kernels.LAUNCHES["pack_codes"],
+                kernels.LAUNCHES["unpack_codes"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    rows = cd[:n].reshape(-1, 4)
+    assert torch.equal(dc.pack_codes(rows).reshape(-1).cpu(),
+                       dc.pack_codes_plain(codes[:n]))
+
+
+def test_count_sharded_on_card_matches_plain(dev):
+    """count_sharded on 4 shards (all on this card, or spread over the
+    cards) equals the same on 4 CPU shards (the plain K8a and K10), one
+    k-mer past 255 across the shards."""
+    from br_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(5)
+    batch = rng.choice(tc.BASES, (16, 3000)).astype(np.uint8)
+    batch[:, :200] = ord("A")
+    lens = rng.integers(0, 3000, 16).astype(np.int32)
+    before = kernels.LAUNCHES["merge_counts"]
+    got = pm.count_sharded(_card_mesh(), batch, lens, 11)
+    want = pm.count_sharded(pm.data_parallel_mesh(["cpu"] * 4), batch,
+                            lens, 11)
+    assert torch.equal(got.cpu(), want) and int(want.max()) == 255
+    assert kernels.LAUNCHES["merge_counts"] == before + 1
+
+
+@pytest.mark.parametrize("a", [-1, 0, 2, 3, 15, 254, 255])
+@pytest.mark.parametrize("k", [13, 17])
+def test_solid_sharded_on_card_matches_single(dev, k, a):
+    """solid_sharded on 4 shards equals the one-device K8 build (the set
+    bits compared on the card), in one partition and, at k = 13, in 8."""
+    from br_tpu_torch.parallel import mesh as pm
+    from br_tpu_torch.set import device_build as db
+
+    rng = np.random.default_rng(k)
+    g = rng.choice(tc.BASES, size=6000).tobytes()
+    reads = tc.fuzz_reads(rng, g, 80, 4, k=k) + [g[100:400]] * 300
+    want = db.build_solid_words(reads, k, a, dev)
+    caps = [db.DEFAULT_MAX_COUNT_BYTES]
+    if k == 13 and 0 <= a <= 254:
+        caps.append(4 * (1 << (2 * k - 1)) * db.counter_bits(a) // 64)
+    for cap in caps:
+        got = pm.solid_sharded(_card_mesh(), reads, k, a, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got.words, want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def test_sharded_corrector_on_card_matches_single(dev):
+    """The default chain through a corrector with a mesh of 3 shards
+    (a chunk count 3 does not divide) equals the one-device corrector and
+    the oracle, with equal last_stats, and launches K11 every chunk."""
+    rng = np.random.default_rng(3)
+    genome = tc.repeat_rich_genome(rng)
+    reads = tc.fuzz_reads(rng, genome, 60, 5)
+    solid = SolidSet.from_sequences([genome], tc.K)
+    # 8 chunks of 8 slots
+    single = Torch3Corrector(solid, FULL, tc.C, tc.MS, chunk=1 << 12,
+                             nreads=8)
+    want = single.correct_batch(reads, False)
+    sharded = Torch3Corrector(solid, FULL, tc.C, tc.MS, chunk=1 << 12,
+                              nreads=8)
+    sharded.mesh = _card_mesh(3)
+    kernels.reset_launches()
+    got = sharded.correct_batch(reads, False)
+    assert got == want and sharded.last_stats == single.last_stats
+    chunks = sharded.last_stats["chunks"]
+    assert chunks % 3 and kernels.LAUNCHES["unpack_codes"] >= chunks
+    methods = build_methods(FULL, solid, tc.C, tc.MS)
+    assert got == [correct_read(r, methods, False) for r in reads]
+
+
+_TWO = """
+import sys
+rank, n, port = map(int, sys.argv[1:4])
+from br_tpu_torch.correct.engine3 import Torch3Corrector
+Torch3Corrector.CHUNK, Torch3Corrector.R = %(chunk)d, %(r)d
+from br_tpu_torch.parallel import multihost
+from br_tpu_torch.set.solid import SolidSet
+multihost.initialize(f"localhost:{port}", n, rank, timeout_s=120)
+solid = SolidSet.load(%(set)r)
+for fn, out in ((multihost.run_correction_striped, %(striped)r),
+                (multihost.run_correction_ranged, %(ranged)r)):
+    fn(%(fa)r, out, solid, %(chain)r, 5, 7, False, rank, n)
+multihost.shutdown()
+"""
+
+
+def test_two_processes_on_card_match_one(dev, tmp_path):
+    """Two processes (gloo, each on a card: both on this one where it is
+    the only one), striped then ranged, merge to the one-process output
+    of the default chain; each child under a time limit."""
+    import socket
+
+    from br_tpu_torch.runtime import run_correction
+
+    rng = np.random.default_rng(4)
+    genome = tc.repeat_rich_genome(rng)
+    reads = tc.fuzz_reads(rng, genome, 41, 5)
+    fa = tmp_path / "in.fa"
+    fa.write_bytes(b"".join(b">r%d\n%s\n" % (i, r)
+                            for i, r in enumerate(reads)))
+    solid = SolidSet.from_sequences([genome], tc.K)
+    solid.save(str(tmp_path / "set.solid"))
+    single = tmp_path / "single.fa"
+    run_correction([str(fa)], [str(single)], solid, FULL, tc.C, tc.MS,
+                   False, corrector=Torch3Corrector(
+                       solid, FULL, tc.C, tc.MS, chunk=tc.CHUNK,
+                       nreads=tc.R))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = _TWO % {"chunk": tc.CHUNK, "r": tc.R,
+                   "set": str(tmp_path / "set.solid"), "fa": str(fa),
+                   "striped": str(tmp_path / "striped.fa"),
+                   "ranged": str(tmp_path / "ranged.fa"), "chain": FULL}
+    root = str(Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), "2",
+                               str(port)], cwd=root,
+                              env={**os.environ, "PYTHONPATH": root},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    want = single.read_bytes()
+    assert (tmp_path / "striped.fa").read_bytes() == want
+    assert (tmp_path / "ranged.fa").read_bytes() == want

@@ -93,7 +93,7 @@ def test_narrow_count_and_pack_match_br_tpu(k):
     for a in ABUNDANCES:
         want = counter.to_solid(a).host_words()
         if not 0 <= a <= 254:
-            got = db.build_words(batches, k, a)
+            got = db.build_words([batches], k, a)
             assert np.array_equal(got.numpy().view(np.uint32), want), a
             continue
         w = db.counter_bits(a)
@@ -126,7 +126,7 @@ def test_plain_build_matches_br_tpu(k):
         assert np.array_equal(got, want)
         batches = [db.pack_reads(reads[:15], k, "cpu"),
                    db.pack_reads(reads[15:], k, "cpu")]
-        swept = db.build_words(batches, k, a,
+        swept = db.build_words([batches], k, a,
                                max_count_bytes=_cap4(k, a))
         assert np.array_equal(swept.numpy().view(np.uint32), want)
         assert want.any()
@@ -157,7 +157,7 @@ def test_build_matches_counter_at_every_saturation():
         assert np.array_equal(got, want), a
         batches = [db.pack_reads(reads[:100], k, "cpu"),
                    db.pack_reads(reads[100:], k, "cpu")]
-        swept = db.build_words(batches, k, a,
+        swept = db.build_words([batches], k, a,
                                max_count_bytes=_cap4(k, a))
         assert np.array_equal(swept.numpy().view(np.uint32), want), a
     assert not got.any()   # a = 255: empty

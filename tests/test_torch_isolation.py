@@ -21,6 +21,8 @@ import br_tpu_torch.correct.alignment
 import br_tpu_torch.native, br_tpu_torch.native.build
 import br_tpu_torch.set.device_build, br_tpu_torch.set.hash
 import br_tpu_torch.correct.hash_probe
+import br_tpu_torch.parallel, br_tpu_torch.parallel.mesh
+import br_tpu_torch.parallel.multihost
 import chip_smoke
 sys.path.insert(0, 'tests')
 import torch_cases  # chip_smoke.long_walk_chunk draws its chunk with it
