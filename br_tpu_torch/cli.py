@@ -1,5 +1,6 @@
 """Command-line interface of the port — the br-compatible parser of
-``br_tpu.cli`` plus ``--device``.
+``br_tpu.cli`` (with ``--backend``, ``--trace``, ``--line-width``) plus
+``--device``.
 
     python -m br_tpu_torch.cli -i reads.fa -o out.fa \\
         fasta -i reads.fa -k 13 -a 2
@@ -30,10 +31,19 @@ is br's default, all five in that order.  A solid bitfield above k = 17
 is refused (2^(2k-1) bits: a host ``Counter`` at k = 19 would hold 128
 GiB, in br_tpu too): for ``fasta`` before anything is counted, for
 ``count`` and ``solid`` as soon as the set is loaded; ``large-kmer`` is
-the way to a large k.  ``--device`` is ``cuda`` (default) or ``cpu``
-(the kernels' plain PyTorch versions).
-``-t`` sets the host threads of the native engine that corrects the
-reads the device does not finish (0: one a core).
+the way to a large k.
+
+``--backend`` picks the corrector (``runtime.make_corrector``): ``auto``
+(default) and ``torch`` the device corrector, on ``--device``: ``cuda``
+(default) or ``cpu`` (the kernels' plain PyTorch versions); ``native``
+(the C++ host engine) and ``oracle`` (the Python reference) run on the
+host only, touch no CUDA, and build the set as br_tpu's CLI does (the
+host ``Counter`` for ``fasta``).  ``-t`` sets the native engine's host
+threads (0: one a core): for the device corrector those of the reads the
+device does not finish.  ``-T sec|ms|ns`` stamps every log line;
+``-v`` ends the run with one line a stage (``build-set``, ``correct``,
+``write``: ``profiling.report``); ``--trace DIR`` writes a
+``torch.profiler`` trace of the run (``profiling.device_trace``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from br_tpu_torch import (
     DEFAULT_MAX_SEARCH,
     DEFAULT_RECORD_BUFFER,
     __version__,
+    profiling,
 )
 from br_tpu_torch.correct.device_codec import MAX_K_SOLID
 from br_tpu_torch.count import Counter, Spectrum, ThresholdMethod
@@ -60,7 +71,7 @@ from br_tpu_torch.errors import (
     SolidRequireKmerSize,
 )
 from br_tpu_torch.io.fasta import open_maybe_compressed, read_records
-from br_tpu_torch.runtime import run_correction, stdio_streams
+from br_tpu_torch.runtime import HOST_BACKENDS, run_correction, stdio_streams
 from br_tpu_torch.set import HashSet, SolidSet
 from br_tpu_torch.set.device_build import (
     BATCH_BASES, DeviceSolidSet, SolidBuilder)
@@ -99,18 +110,27 @@ def build_parser() -> argparse.ArgumentParser:
                    default=DEFAULT_RECORD_BUFFER,
                    help="number of records per batch")
     p.add_argument("-t", "--threads", type=int, default=0,
-                   help="host threads of the native engine for the reads "
-                   "the device does not finish (0: one a core)")
+                   help="host threads of the native engine: the native "
+                   "backend's, or the device corrector's for the reads the "
+                   "device does not finish (0: one a core)")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="silence all output")
     p.add_argument("-v", "--verbosity", action="count", default=0)
     p.add_argument("-T", "--timestamp", choices=("sec", "ms", "ns", "none"),
                    default="none")
+    p.add_argument("--backend", choices=("auto", "torch", "native",
+                                          "oracle"),
+                   default="auto", help="correction backend (auto: torch, "
+                   "the device corrector; native, oracle: on the host)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the correction runs (cpu: the kernels' "
-                   "plain PyTorch versions)")
+                   help="where the device corrector and the set build of "
+                   "`fasta -a` run (cpu: the kernels' plain PyTorch "
+                   "versions); the host backends ignore it")
     p.add_argument("--line-width", type=int, default=80,
                    help="FASTA output wrap width (0 = single line)")
+    p.add_argument("--trace", metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                   f"DIR/{profiling.TRACE_FILE}")
 
     sub = p.add_subparsers(dest="subcommand", required=True)
 
@@ -177,7 +197,7 @@ def build_set(args):
 
     if args.subcommand == "fasta":
         k = round_down_odd(args.kmer_size)
-        if args.abundance is not None:
+        if args.abundance is not None and args.backend not in HOST_BACKENDS:
             return device_set(args.set_inputs, k, args.abundance,
                               args.device)
         counter = Counter(k)
@@ -241,15 +261,36 @@ def refuse_k(k: int, kind: str = "solid") -> bool:
     return True
 
 
-def configure_logging(quiet: bool, verbosity: int) -> None:
+class _TimestampFormatter(logging.Formatter):
+    """stderrlog-style optional timestamps (-T sec|ms|ns, src/main.rs:27)."""
+
+    def __init__(self, unit: str):
+        super().__init__("%(asctime)s %(levelname)s %(name)s: %(message)s",
+                         datefmt="%Y-%m-%dT%H:%M:%S")
+        self.unit = unit
+
+    def formatTime(self, record, datefmt=None):
+        base = super().formatTime(record, datefmt)
+        if self.unit == "ms":
+            return f"{base}.{int(record.msecs):03d}"
+        if self.unit == "ns":
+            frac = record.created - int(record.created)
+            return f"{base}.{int(frac * 1e9):09d}"
+        return base
+
+
+def configure_logging(quiet: bool, verbosity: int, timestamp: str) -> None:
     """stderr logging à la stderrlog (src/main.rs:22-28): -q silences,
-    -v raises verbosity."""
+    -v raises verbosity, -T adds timestamps."""
     level = logging.CRITICAL if quiet else (
         [logging.WARNING, logging.INFO, logging.DEBUG][min(verbosity, 2)]
     )
     handler = logging.StreamHandler(sys.stderr)
-    fmt = "%(levelname)s %(name)s: %(message)s"
-    handler.setFormatter(logging.Formatter(fmt))
+    if timestamp != "none":
+        handler.setFormatter(_TimestampFormatter(timestamp))
+    else:
+        handler.setFormatter(
+            logging.Formatter("%(levelname)s %(name)s: %(message)s"))
     root = logging.getLogger()
     root.handlers[:] = [handler]
     root.setLevel(level)
@@ -257,40 +298,45 @@ def configure_logging(quiet: bool, verbosity: int) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    configure_logging(args.quiet, args.verbosity)
+    configure_logging(args.quiet, args.verbosity, args.timestamp)
 
     corrections = args.corrections or list(DEFAULT_CORRECTIONS)
     # before anything is counted
     if (args.subcommand == "fasta"
             and refuse_k(round_down_odd(args.kmer_size))):
         return 2
-    if args.device == "cuda" and not torch.cuda.is_available():
+    on_card = args.backend not in HOST_BACKENDS and args.device == "cuda"
+    if on_card and not torch.cuda.is_available():
         print("error: --device cuda was asked for and CUDA is not "
               "available; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 1
 
     try:
-        kmer_set = build_set(args)
-        if refuse_k(kmer_set.k, "hash" if isinstance(kmer_set, HashSet)
-                    else "solid"):
-            return 2
-        inputs, outputs = stdio_streams(args.inputs, args.outputs)
-        n = run_correction(
-            inputs,
-            outputs,
-            kmer_set,
-            corrections,
-            args.confirm,
-            args.max_search,
-            args.two_side,
-            record_buffer=args.record_buffer,
-            line_width=args.line_width,
-            device=args.device,
-            threads=args.threads,
-        )
+        with profiling.device_trace(args.trace, cuda=on_card):
+            with profiling.stage("build-set"):
+                kmer_set = build_set(args)
+            if refuse_k(kmer_set.k, "hash" if isinstance(kmer_set, HashSet)
+                        else "solid"):
+                return 2
+            inputs, outputs = stdio_streams(args.inputs, args.outputs)
+            n = run_correction(
+                inputs,
+                outputs,
+                kmer_set,
+                corrections,
+                args.confirm,
+                args.max_search,
+                args.two_side,
+                record_buffer=args.record_buffer,
+                line_width=args.line_width,
+                device=args.device,
+                threads=args.threads,
+                backend=args.backend,
+            )
         if args.verbosity:
             logging.getLogger("br_tpu_torch").info("corrected %d records", n)
+            profiling.report()
     except BrError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -125,7 +125,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    (k = 13, a = 2) and w = 8 (the u8 view, a = 254), and K11a/K11b at
    2^20 and 2^18 codes carrying bits above the 2-bit code, each held
    exactly against its plain version and timed as in 4 against its
-   bound; count_sharded at k = 13 over the whole corpus, launch counts
+   bound; the launch floor (launch_floor: an empty launch,
+   torch.cuda._sleep(0), timed as in 4) beside K11a, K11b and K4;
+   count_sharded at k = 13 over the whole corpus, launch counts
    set to 0 just before (the u8 entry of K10 in the kernel line takes
    its launches), equal to the host Counter's u8 counts;
    solid_sharded at k = 13 and 17 (a = 2) over the whole corpus,
@@ -143,6 +145,18 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    from count_stripe_merged at k = 13 (held equal to the host
    Counter(13, uint32)), each child under CHILD_TIMEOUT: the merged files
    byte-equal to phase 5's one-process output.
+13. the CLI as a user runs it (cli_phase): two runs of `python -m
+   br_tpu_torch.cli -v -T ms` on phase 5's corpus and set flags (`fasta
+   -k 13 -a 2`), each killed past CLI_TIMEOUT, each byte-equal to phase
+   5's output, each with the three stage report lines (build-set,
+   correct, write) stamped as -T ms stamps them: first with `--trace
+   DIR` (a temporary directory), whose torch.profiler trace must hold a
+   CUDA kernel event for every launch phase 5 counted, kernel by kernel
+   (K3's two kernels a call), logged with each kernel's summed device ms,
+   the stage seconds and the device's busy share (the union of the
+   kernel events over the range) inside the correct and the build-set
+   range; then `--backend native -t 0`, all reads on the host engine on
+   every core, its correct seconds the host baseline.
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
@@ -159,6 +173,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -185,6 +200,8 @@ TRUSTED_HOST_SAMPLE = 100
 #: reads of the corpus the k = 21 set corrects through the mesh; seconds
 #: a child process of the two-process check may take
 N_MESH_LARGE, CHILD_TIMEOUT = 500, 300
+#: seconds a CLI run of phase 13 may take
+CLI_TIMEOUT = 300
 MAX_FALLBACK = 0.05
 #: the script's start (perf_counter), for the phase clock
 T0 = time.perf_counter()
@@ -1903,6 +1920,25 @@ def k11_checks(n, device, sync, reps=20):
     return out
 
 
+def launch_floor(checks, k4, sync, reps=20):
+    """An empty launch (``torch.cuda._sleep(0)``) timed as the kernel
+    checks time a kernel, queued behind a spin: the least device time a
+    launch takes.  Logged beside K11a and K11b (from ``checks``) and K4
+    (``k4``: its ms by chunk size), each as a multiple of it."""
+    import torch
+
+    ms = cuda_ms(lambda: torch.cuda._sleep(0), reps, sync, queued=True)
+    near = {}
+    for size, tag in (("2^20", ""), ("2^18", "[2^18]")):
+        for name in ("unpack_codes", "pack_codes"):
+            near[f"{name}{tag}"] = checks[name + tag]["ms"]
+        near[f"reverse_slots[{size}]"] = k4[size]
+    log("launch floor: " + json.dumps({
+        "empty_launch_ms": ms, "kernels_ms": near,
+        "over_floor": {n: t / ms for n, t in near.items()}}))
+    return ms
+
+
 def mesh_child(spec, workdir, line_width):
     """One process of the two-process check (``--mesh-child rank,n,port``):
     join the gloo group on card rank % count, count the corpus's stripe
@@ -2027,6 +2063,7 @@ def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
         del rows
     for n in (1 << 20, 1 << 18):
         checks.update(k11_checks(n, device, sync))
+    launch_floor(checks, main["k4"], sync)
     torch.cuda.empty_cache()
 
     # count_sharded over the corpus (K8a into each shard's 8-bit counters,
@@ -2169,6 +2206,141 @@ def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
     return checks, launches, launches_u8
 
 
+#: the port's kernels by their CUDA function names (the trace's kernel
+#: events), each to its launch counter (K3's two kernels to one)
+TRACE_KERNELS = {
+    "dense_probe_kernel": "dense_probe", "one_sites_kernel": "one_sites",
+    "two_sites_kernel": "two_sites", "walk_sites_kernel": "walk_sites",
+    "greedy_sites_kernel": "greedy_sites",
+    "splice_walk_kernel": "chain_splice",
+    "splice_copy_kernel": "chain_splice",
+    "reverse_slots_kernel": "reverse_slots",
+    "solid_count_kernel": "solid_count", "solid_pack_kernel": "solid_pack",
+    "hash_probe_kernel": "hash_probe", "merge_counts_kernel": "merge_counts",
+    "unpack_codes_kernel": "unpack_codes", "pack_codes_kernel": "pack_codes",
+}
+#: a port kernel's name inside a trace event's (demangled or mangled) name
+TRACE_KERNEL_RE = re.compile(r"(?<![A-Za-z_])(%s)(?![a-z_])"
+                             % "|".join(TRACE_KERNELS))
+#: the CLI's -v report line of a stage under -T ms
+STAGE_LINE = re.compile(r"^\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d\.\d{3} INFO "
+                        r"br_tpu_torch: stage (\S+) +(\d+\.\d{3})s +(\d+) "
+                        r"calls$")
+STAGES = ("build-set", "correct", "write")
+
+
+def run_cli(argv, label):
+    """``python -m br_tpu_torch.cli argv`` from the repo's root, killed
+    past CLI_TIMEOUT; fails on a nonzero exit or a stage report line
+    missing.  Returns {stage: seconds} from the report lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "br_tpu_torch.cli",
+                            "-v", "-T", "ms", *argv], cwd=root,
+                           capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{label}: ran past {CLI_TIMEOUT} s")
+    check(r.returncode == 0, f"{label}: exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    stages = {}
+    for ln in r.stderr.splitlines():
+        m = STAGE_LINE.match(ln)
+        if m:
+            stages[m.group(1)] = float(m.group(2))
+    check(sorted(stages) == sorted(STAGES),
+          f"{label}: stamped stage lines {sorted(stages)}, expected "
+          f"{sorted(STAGES)}:\n{r.stderr[-4000:]}")
+    log(f"{label}: " + json.dumps({"wall_s": time.perf_counter() - t0,
+                                   "stage_s": stages}))
+    return stages
+
+
+def busy_share(spans, ranges):
+    """The union of the kernel ``spans`` inside ``ranges`` (each a list of
+    (start, end)) over the ranges' summed length."""
+    busy = total = 0.0
+    spans = sorted(spans)
+    for lo, hi in ranges:
+        total += hi - lo
+        end = lo
+        for a, b in spans:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                busy += b - a
+                end = b
+    return busy / total if total else 0.0
+
+
+def trace_summary(path):
+    """The Chrome trace of the CLI's --trace: the port's kernel events by
+    launch counter (count, summed device ms), the count of every kernel
+    event, and the stage ranges' busy shares."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "user_annotation"
+                     and e.get("name") == name] for name in STAGES}
+    mine = {}
+    for e in kern:
+        m = TRACE_KERNEL_RE.search(e.get("name", ""))
+        if m:
+            r = mine.setdefault(TRACE_KERNELS[m.group(1)],
+                                {"events": 0, "device_ms": 0.0})
+            r["events"] += 1
+            r["device_ms"] += e["dur"] / 1e3
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kern]
+    return {"kernels": mine, "kernel_events": len(kern),
+            "port_kernel_events": sum(r["events"] for r in mine.values()),
+            "ranges": {n: len(r) for n, r in ranges.items()},
+            "busy_share": {n: busy_share(spans, r)
+                           for n, r in ranges.items() if n != "write"}}
+
+
+def cli_phase(workdir, fa, want, launches):
+    """Phase 13, the CLI as a user runs it (see the module's text):
+    ``want`` is phase 5's output, ``launches`` its launch counts."""
+    from br_tpu_torch.profiling import TRACE_FILE
+
+    trace_dir = os.path.join(workdir, "trace")
+    set_args = ["fasta", "-i", fa, "-k", str(K), "-a", "2"]
+    out = os.path.join(workdir, "out_cli_trace.fa")
+    stages = run_cli(["--trace", trace_dir, "-i", fa, "-o", out,
+                      *set_args], "CLI trace run")
+    with open(out, "rb") as fh:
+        check(fh.read() == want, "CLI trace run: the output differs from "
+                                 "phase 5's")
+    path = os.path.join(trace_dir, TRACE_FILE)
+    summary = trace_summary(path)
+    mine = summary.pop("kernels")
+    for name, r in sorted(mine.items()):
+        log(f"CLI trace kernel {name}: " + json.dumps({
+            **r, "phase5_launches": launches.get(name)}))
+    log("CLI trace: " + json.dumps({
+        **summary, "trace_bytes": os.path.getsize(path), "stage_s": stages}))
+    events = {n: r["events"] for n, r in mine.items()}
+    want_events = {n: c for n, c in launches.items() if c}
+    check(events == want_events, f"CLI trace: kernel events {events}, "
+                                 f"phase 5's launches {want_events}")
+    check(all(summary["ranges"][n] for n in STAGES),
+          f"CLI trace: stage ranges {summary['ranges']}")
+
+    out = os.path.join(workdir, "out_cli_native.fa")
+    stages = run_cli(["-t", "0", "--backend", "native", "-i", fa, "-o", out,
+                      *set_args], "CLI native run")
+    with open(out, "rb") as fh:
+        check(fh.read() == want, "CLI native run: the output differs from "
+                                 "phase 5's")
+    log("host baseline: " + json.dumps({
+        "backend": "native", "reads": N_READS,
+        "correct_s": stages["correct"],
+        "reads_per_s": N_READS / stages["correct"],
+        "build_set_s": stages["build-set"], "threads": "-t 0, one a core",
+        "cpu_count": os.cpu_count(), "equal_to_phase5": True}))
+
+
 def main_path(workdir, device, sync, card, build, base_dir=None):
     """Corpus, the k = 13 solid set on the host and by K8, kernel checks,
     the default-chain CLI path and its output check, then the `-c one`
@@ -2307,8 +2479,13 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         workdir, fa, seqs, n_bases, device, sync, card, baseline)
     checks.update(checks_l)
     log(f"phase clock: several devices at {time.perf_counter() - T0:.0f} s")
+    main["k4"] = {"2^20": checks["reverse_slots"]["ms"],
+                  "2^18": checks["reverse_slots[retry chunk]"]["ms"]}
     checks_m, launches_m, launches_u8 = mesh_phase(
         workdir, fa, seqs, n_bases, device, sync, card, main, (hset, out21))
+    log(f"phase clock: the CLI at {time.perf_counter() - T0:.0f} s")
+    with open(out, "rb") as fh:
+        cli_phase(workdir, fa, fh.read(), launches)
     log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
     checks.update(checks_m)
     # the launches of a kernel's summary entry: K9's on the large-k path,

@@ -4,12 +4,24 @@ takes larger k) with one error line and a non-zero exit code: for
 soon as the set is loaded; an even k still rounds down to the odd k
 below it.  ``fasta -a`` builds the solid set on the corrector's device
 (the plain version of K8 on the CPU), k = 17 included, and no host
-Counter.  ``large-kmer`` runs (tests/test_torch_hash.py)."""
+Counter.  ``large-kmer`` runs (tests/test_torch_hash.py).
+
+The backends give br_tpu's CLI's bytes: ``--backend native`` and
+``oracle`` on the host, with no CUDA, ``torch`` (and ``auto``) on the
+device corrector, which never hands the run to a host backend; ``-T``
+stamps every log line as br_tpu's CLI does."""
+
+import fcntl
+import logging
+import re
 
 import numpy as np
 import pytest
+import torch
 
+from br_tpu import cli as j_cli
 from br_tpu_torch import cli
+from br_tpu_torch.corpus import write_corpus
 
 
 class _NoCounter:
@@ -134,3 +146,135 @@ def test_loaded_set_above_17_refused_before_correcting(monkeypatch, tmp_path,
                    sub[0], "-i", str(tmp_path / "set"), *sub[1:]])
     err = capsys.readouterr().err
     assert rc != 0 and err.count("\n") == 1 and err.startswith("error: k=19")
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A seeded corpus of 30 reads (~400 bases, 4x of a 3 kb genome) with
+    both native engines built, one test worker at a time (br_tpu's build
+    writes its library in place)."""
+    from br_tpu.native import get_lib
+    from br_tpu_torch.native import build, get_lib as t_get_lib
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(build.BUILD_DIR / "tests.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        get_lib()
+        t_get_lib()
+    fa = tmp_path_factory.mktemp("backends") / "r.fa"
+    write_corpus(str(fa), 30, 3000, 400, 900, 7)
+    return str(fa)
+
+
+#: the chains the backends are compared on: -c one and the default one
+CHAINS = {"one": ["-c", "one"], "default": []}
+_BR_TPU: dict = {}
+
+
+def _set_args(fa):
+    return ["fasta", "-i", fa, "-k", "11", "-a", "1"]
+
+
+def br_tpu_bytes(fa, chain, tmp_path):
+    """br_tpu's CLI's output on ``fa`` for ``chain``: its native and its
+    oracle backend, which must agree."""
+    if (fa, chain) not in _BR_TPU:
+        outs = []
+        for backend in ("native", "oracle"):
+            out = tmp_path / f"br_tpu_{backend}.fa"
+            assert j_cli.main(["-i", fa, "-o", str(out), "-t", "2",
+                               *CHAINS[chain], "--backend", backend,
+                               *_set_args(fa)]) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1]
+        _BR_TPU[fa, chain] = outs[0]
+    return _BR_TPU[fa, chain]
+
+
+@pytest.mark.parametrize("backend", [["--backend", "native"],
+                                     ["--backend", "oracle"],
+                                     ["--backend", "torch", "--device",
+                                      "cpu"]])
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_backends_match_br_tpu(corpus, tmp_path, capsys, chain, backend):
+    out = tmp_path / "o.fa"
+    assert cli.main(["-i", corpus, "-o", str(out), "-t", "2",
+                     *CHAINS[chain], *backend, *_set_args(corpus)]) == 0
+    want = br_tpu_bytes(corpus, chain, tmp_path)
+    assert out.read_bytes() == want
+    assert want != open(corpus, "rb").read()
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("backend", ["native", "oracle"])
+def test_host_backend_needs_no_cuda(monkeypatch, corpus, tmp_path, capsys,
+                                    backend):
+    """A host backend with the default --device: no CUDA check, no device
+    and no device set build (the host Counter, as br_tpu's CLI)."""
+    from br_tpu_torch.correct import engine3
+
+    def no_device(device):
+        raise AssertionError("a device was resolved")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(engine3, "resolve_device", no_device)
+    monkeypatch.setattr(cli, "SolidBuilder", _NoCounter)
+    out = tmp_path / "o.fa"
+    assert cli.main(["-i", corpus, "-o", str(out), "-t", "2", "-c", "one",
+                     "--backend", backend, *_set_args(corpus)]) == 0
+    assert out.read_bytes() == br_tpu_bytes(corpus, "one", tmp_path)
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("backend", [[], ["--backend", "auto"],
+                                     ["--backend", "torch"]])
+def test_device_backend_without_cuda_exits_1(monkeypatch, tmp_path, capsys,
+                                             backend):
+    """auto and torch never run a host backend in place of the device."""
+    import br_tpu_torch.native as native
+
+    def no_host(*a, **kw):
+        raise AssertionError("a host backend was made")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(native, "NativeCorrector", no_host)
+    monkeypatch.setattr(cli, "build_set", no_host)
+    fa = _reads(tmp_path)
+    out = tmp_path / "o.fa"
+    assert cli.main(["-i", fa, "-o", str(out), *backend, "fasta", "-i", fa,
+                     "-k", "13", "-a", "2"]) == 1
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "CUDA is not available" in err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("unit", ["sec", "ms", "ns"])
+def test_timestamp_format_matches_br_tpu(unit):
+    record = logging.LogRecord("br_tpu_torch", logging.INFO, __file__, 1,
+                               "stage %s", ("correct",), None)
+    record.created = 1_700_000_000.123456789
+    record.msecs = 123.456789
+    mine = cli._TimestampFormatter(unit).format(record)
+    theirs = j_cli._TimestampFormatter(unit).format(record)
+    assert mine == theirs
+    assert mine.endswith(" INFO br_tpu_torch: stage correct")
+
+
+def test_timestamp_ms_stamps_every_line(tmp_path, capsys):
+    """``-v -T ms``: every stderr line starts with a millisecond stamp;
+    the run ends with one report line a stage."""
+    from br_tpu_torch import profiling
+
+    profiling.reset_stages()
+    fa = _reads(tmp_path)
+    assert cli.main(["-v", "-T", "ms", "-i", fa, "-o",
+                     str(tmp_path / "o.fa"), "--device", "cpu", "-c", "one",
+                     "fasta", "-i", fa, "-k", "11", "-a", "0"]) == 0
+    logging.getLogger().handlers[:] = []
+    lines = capsys.readouterr().err.splitlines()
+    stamp = r"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d\.\d{3} INFO br_tpu_torch: "
+    assert lines and all(re.match(stamp, ln) for ln in lines), lines
+    stages = [m.group(1) for ln in lines
+              if (m := re.match(stamp + r"stage (\S+) +\d+\.\d{3}s +1 calls$",
+                                ln))]
+    assert sorted(stages) == ["build-set", "correct", "write"]

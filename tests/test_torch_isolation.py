@@ -14,6 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import br_tpu_torch, br_tpu_torch.cli, br_tpu_torch.runtime
+import br_tpu_torch.profiling, br_tpu_torch.set, br_tpu_torch.correct
 import br_tpu_torch.correct.engine3, br_tpu_torch.corpus, br_tpu_torch.kernels
 import br_tpu_torch.correct.two, br_tpu_torch.correct.walk
 import br_tpu_torch.correct.greedy, br_tpu_torch.correct.reference
