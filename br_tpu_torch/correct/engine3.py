@@ -40,11 +40,18 @@ needs one.  A ``HashSet``'s padded table is copied to the device once
 and its bucket index built there (``HashSet.device_table_tensor``),
 shared by the wide sibling; the native engine takes the host set itself.
 
-A chunk crosses the bus 2-bit packed: K11a ``unpack_codes`` unpacks it at
-the chain's entry and K11b ``pack_codes`` packs it at its exit
-(``device_codec``).  With ``mesh`` set (a ``parallel.mesh.Mesh``), a
-batch's chunks go round robin over the shards, chunk i on shard i mod D's
-device against the table's copy there (``_dispatch_sharded``); the
+A batch's chunks run in groups of up to ``NC_MAX`` (the JAX package's
+chunk-batched chain, engine3.py:1905-1916, :2203-2209, :2295-2326): every
+kernel of the chain takes a group's NC chunks in one launch, chunk
+blockIdx.y, each with the arrays, capacities and cap rules of a chunk on
+its own (``make_pass3_fn(batch=True)``), so a group makes each of a
+chunk's launches once.  A group crosses the bus 2-bit packed in three
+copies: K11a ``unpack_codes`` unpacks it at the chain's entry and K11b
+``pack_codes`` packs it at its exit, one launch each (``device_codec``).
+A short group is not padded: nothing here has a fixed shape.  With
+``mesh`` set (a ``parallel.mesh.Mesh``), a batch's chunks go round robin
+over the shards, chunk i on shard i mod D's device against the table's
+copy there, each shard's chunks in groups (``_dispatch_sharded``); the
 output, cap flags and ``last_stats`` are the one-device corrector's.
 """
 
@@ -105,11 +112,17 @@ def host_set(valid_kmer):
 
 
 def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
-                  CHUNK: int, R: int, walk_max: int = WALK_MAX):
+                  CHUNK: int, R: int, walk_max: int = WALK_MAX,
+                  batch: bool = False):
     """One pass of ``strategy`` over a chunk: a callable
     (table, codes (CHUNK,) u8, rstart (R,) i32, rlen (R,) i32) ->
     (out codes (CHUNK,) u8, out_lens (R,) i32, cap (R,) bool,
-    aux (8,) i32), the signature of the JAX package's pass.
+    aux (8,) i32), the signature of the JAX package's pass.  With
+    ``batch`` (the JAX package's vmapped pass, engine3.py:1905-1916) it
+    takes a group of NC independent chunks against one table, every
+    array with a leading axis of NC, in one launch of each kernel, and
+    returns (NC, CHUNK) codes, (NC, R) out_lens and cap, (NC, 8) aux:
+    each chunk's as a pass over it alone gives them.
 
     Unused slots have rstart = CHUNK and rlen = 0; a slot's capacity is
     the distance to the next slot's start (the last: to CHUNK).  aux =
@@ -144,17 +157,22 @@ def make_pass3_fn(k: int, strategy: str, c: int, ms: int, nb: int,
                           rstart, rlen, k, c, strategy, walk_max)
 
     def passfn(table, codes, rstart, rlen):
+        if codes.dim() != 1 + batch:
+            raise ValueError(f"a {'batched ' if batch else ''}pass takes "
+                             f"{'(NC, CHUNK)' if batch else '(CHUNK,)'} "
+                             f"codes, got {tuple(codes.shape)}")
         d = dense_probe(table, codes, rstart, rlen, k, NS)
         s = site_pass(table, codes, d, rstart, rlen)
         sp = chain_splice(codes, rstart, rlen, d.s_pos, d.n_sites, s,
                           d.cap_read)
-        # the visited-record capacity NR spans all reads (records are
-        # compacted in read order): reads with a record past it cap
-        cum = torch.cumsum(sp.rec_cnt, 0)
+        # the visited-record capacity NR spans all reads of a chunk
+        # (records are compacted in read order): reads with a record past
+        # it cap
+        cum = torch.cumsum(sp.rec_cnt, -1)
         cap = sp.cap | ((cum > NR) & (sp.rec_cnt > 0))
         aux = sp.aux
-        aux[5] = cum[-1].clamp(max=NR)
-        aux[6] = cap.sum()
+        aux[..., 5] = cum[..., -1].clamp(max=NR)
+        aux[..., 6] = cap.sum(-1)
         return sp.out, sp.out_len, cap, aux
 
     return passfn
@@ -196,6 +214,16 @@ class Torch3Corrector:
     CHUNK = 1 << 20
     #: read slots per chunk
     R = 512
+    #: most chunks of a group, run through the chain together (every
+    #: kernel launched once a group); the wide sibling takes its
+    #: parent's.  1 runs each chunk alone.  16: in chip_smoke.py's NC
+    #: sweep on an H100 (k = 13, 26 chunks of 2^20 and 21 of 2^18) 16
+    #: and 64 beat 1 by a fifth to a third of correct_s and lie within
+    #: one another's run-to-run spread, and 4 is slower than 16 in every
+    #: paired run; 16 is timed at its own group size (a 64-chunk group
+    #: never was), at ~38 MB of device memory a chunk of a group (~0.6
+    #: GB).  br_tpu keeps 1, its ops being bound by bytes on the TPU.
+    NC_MAX = 16
 
     def __init__(self, valid_kmer, corrections, confirm: int,
                  max_search: int, chunk: int | None = None,
@@ -236,9 +264,10 @@ class Torch3Corrector:
         #: the walk bound of this corrector's passes; a corrector on the
         #: default profile retries capped reads on a wide sibling
         self.walk_max = walk_max
+        #: the batched pass of each strategy (groups of chunks)
         self._passes = {s: make_pass3_fn(self.k, s, self.c, self.ms,
                                          self.c, self.CHUNK, self.R,
-                                         walk_max=walk_max)
+                                         walk_max=walk_max, batch=True)
                         for s in set(self.corrections)}
         self._wide = None
         #: a ``parallel.mesh.Mesh`` to spread the chunks over (None: this
@@ -289,21 +318,39 @@ class Torch3Corrector:
             plans.append((cur_idx, cur_starts))
         return plans
 
-    def _chunk_arrays(self, seqs, idxs, starts):
-        """Host-side packing of one chunk: 2-bit codes + slot tables."""
+    def _chunk_arrays(self, seqs, idxs, starts, out=None):
+        """Host-side packing of one chunk: its 2-bit codes packed four a
+        byte, and its slot tables, written into ``out`` (a group's rows:
+        packed (CHUNK/4,) u8, rstart and rlen (R,) i32, rstart filled with
+        CHUNK and rlen with 0) or into new arrays; returns them."""
         CHUNK, R = self.CHUNK, self.R
+        if out is None:
+            out = (np.empty(CHUNK // 4, np.uint8),
+                   np.full(R, CHUNK, np.int32), np.zeros(R, np.int32))
+        packed, rstart, rlen = out
         codes = np.zeros(CHUNK, dtype=np.uint8)
-        rstart = np.full(R, CHUNK, dtype=np.int32)
-        rlen = np.zeros(R, dtype=np.int32)
         for b, (i, lo) in enumerate(zip(idxs, starts)):
             arr = np.frombuffer(seqs[i], dtype=np.uint8)
             codes[lo : lo + len(arr)] = (arr >> 1) & 3
             rstart[b] = lo
             rlen[b] = len(arr)
         b4 = codes.reshape(CHUNK // 4, 4)
-        packed = (b4[:, 0] | (b4[:, 1] << 2) | (b4[:, 2] << 4)
-                  | (b4[:, 3] << 6))
-        return packed, rstart, rlen
+        np.bitwise_or(b4[:, 0] | (b4[:, 1] << 2), (b4[:, 2] << 4)
+                      | (b4[:, 3] << 6), out=packed)
+        return out
+
+    def _group_arrays(self, seqs, group):
+        """Host-side packing of a group of chunks (plans): one (NC,
+        CHUNK/4) packed array and the (NC, R) slot tables, each chunk
+        written into its row."""
+        NC, CHUNK, R = len(group), self.CHUNK, self.R
+        arrays = (np.empty((NC, CHUNK // 4), np.uint8),
+                  np.full((NC, R), CHUNK, np.int32),
+                  np.zeros((NC, R), np.int32))
+        for c, (idxs, starts) in enumerate(group):
+            self._chunk_arrays(seqs, idxs, starts,
+                               tuple(a[c] for a in arrays))
+        return arrays
 
     def _get_wide(self):
         """The retry sibling (engine3.py:2112-2122): the wide walk
@@ -315,18 +362,20 @@ class Torch3Corrector:
                 chunk=min(self.CHUNK, 1 << 18), nreads=min(self.R, 32),
                 device=self.device, table=self.table,
                 walk_max=WIDE_WALK_MAX, parent=self)
+        self._wide.NC_MAX = self.NC_MAX
         return self._wide
 
     # -- the batch interface ---------------------------------------------------
 
     def run_chain(self, codes, rstart, rlen, two_side: bool, table=None):
-        """The full chain on one chunk already on the device: every
-        strategy forward, then (two_side False) reverse, every strategy,
-        reverse back, against ``table`` (the corrector's device table by
-        default; a mesh shard's copy on its device).  Returns (codes,
-        out_lens, cap) without a host synchronisation."""
+        """The full chain on a group of chunks already on the device
+        ((NC, CHUNK) codes, (NC, R) slot tables; the batched passes):
+        every strategy forward, then (two_side False) reverse, every
+        strategy, reverse back, against ``table`` (the corrector's device
+        table by default; a mesh shard's copy on its device).  Returns
+        (codes, out_lens, cap) without a host synchronisation."""
         table = self.table if table is None else table
-        cap_any = torch.zeros(rstart.shape[0], dtype=torch.bool,
+        cap_any = torch.zeros(rstart.shape, dtype=torch.bool,
                               device=codes.device)
         n = rlen
 
@@ -344,26 +393,44 @@ class Torch3Corrector:
         return a, n, cap_any
 
     def _run_arrays(self, arrays, dev, table, two_side: bool):
-        """One chunk's host arrays (``_chunk_arrays``) copied to ``dev``,
-        unpacked (K11a), run through the chain against ``table`` and
-        packed (K11b): the handles (packed codes, out_lens, cap)."""
+        """A group's host arrays (``_group_arrays``) copied to ``dev``
+        (three copies), unpacked (one K11a), run through the chain against
+        ``table`` and packed (one K11b): one handle (packed codes,
+        out_lens, cap) a chunk, views of the group's."""
         packed, rstart, rlen = arrays
         a = dc.unpack_codes(torch.from_numpy(packed).to(dev), self.CHUNK)
         rs = torch.from_numpy(rstart).to(dev)
         n = torch.from_numpy(rlen).to(dev)
         a, n, cap = self.run_chain(a, rs, n, two_side, table)
-        return dc.pack_codes(a), n, cap
+        pk = dc.pack_codes(a)
+        return [(pk[c], n[c], cap[c]) for c in range(pk.shape[0])]
 
-    def _dispatch_chunk(self, seqs, idxs, starts, two_side: bool):
-        return self._run_arrays(self._chunk_arrays(seqs, idxs, starts),
-                                self.device, self.table, two_side)
+    def _dispatch_group(self, seqs, group, two_side: bool, dev=None,
+                        table=None):
+        """The chain on a group of chunks (plans) in one dispatch, on
+        ``dev`` against ``table`` (this corrector's by default); returns
+        a handle a chunk, like engine3.py:2295-2326, whose short groups
+        are padded to NC: here nothing is."""
+        return self._run_arrays(self._group_arrays(seqs, group),
+                                self.device if dev is None else dev,
+                                self.table if table is None else table,
+                                two_side)
+
+    def _groups(self, plans):
+        """Consecutive runs of at most NC_MAX of ``plans``."""
+        if not isinstance(self.NC_MAX, int) or self.NC_MAX < 1:
+            raise ValueError(f"NC_MAX must be a positive int, got "
+                             f"{self.NC_MAX!r}")
+        return [plans[lo : lo + self.NC_MAX]
+                for lo in range(0, len(plans), self.NC_MAX)]
 
     def _dispatch_sharded(self, seqs, plans, two_side: bool):
         """Chunk i on shard i mod D's device against the table's copy
-        there (engine3.py:2401-2436 runs them in groups of D, a short
-        group padded with empty chunks, as pmap needs one a device; here
-        each chunk is its own dispatch, so nothing is padded).  Returns
-        per-plan handles like ``_dispatch_chunk``."""
+        there, each shard's chunks in groups of NC_MAX, a group of every
+        shard in turn (engine3.py:2401-2436 runs one chunk a device at a
+        time, a short round padded with empty chunks, as pmap needs one a
+        device; nothing here is padded).  Returns per-plan handles in
+        plan order."""
         from br_tpu_torch.parallel.mesh import replicated
 
         mesh = self.mesh
@@ -371,9 +438,47 @@ class Torch3Corrector:
             self._mesh_tables = (mesh, replicated(mesh, self.table))
         tables = self._mesh_tables[1]
         D = mesh.size
-        return [self._run_arrays(self._chunk_arrays(seqs, idxs, starts),
-                                 mesh[i % D], tables[i % D], two_side)
-                for i, (idxs, starts) in enumerate(plans)]
+        shards = [self._groups(list(range(d, len(plans), D)))
+                  for d in range(D)]
+        handles = [None] * len(plans)
+        for g in range(max(len(s) for s in shards)):
+            for d in range(D):
+                if g < len(shards[d]):
+                    idx = shards[d][g]
+                    for i, h in zip(idx, self._dispatch_group(
+                            seqs, [plans[i] for i in idx], two_side,
+                            mesh[d], tables[d])):
+                        handles[i] = h
+        return handles
+
+    def warmup(self, two_side: bool, nc: int = 1):
+        """Prepare everything a batch of groups of ``nc`` chunks uses
+        (engine3.py:2150-2185, where it compiles the programs): build and
+        load every kernel library of this corrector's instantiation (on
+        CUDA), load the native engine (a device-built set copied to the
+        host), and run one group of ``nc`` chunks with no reads through
+        the chain, here and on the wide sibling of a default-profile
+        corrector.  After it a batch builds and loads nothing; nothing in
+        the port compiles at run time."""
+        from br_tpu_torch import kernels
+
+        if self.device.type == "cuda":
+            names = [kernels.variant(n, self.k, self.kind)
+                     for n in ("dense_probe", "one_sites", "two_sites",
+                               "walk_sites", "greedy_sites")]
+            names += ["chain_splice", "reverse_slots", "unpack_codes",
+                      "pack_codes"]
+            kernels.build_all(names)
+            for name in names:
+                kernels.library(name)
+        self.native_engine()
+        cors = [self]
+        if self.walk_max == WALK_MAX:
+            cors.append(self._get_wide())
+        for cor in cors:
+            cor._dispatch_group([], [([], [])] * nc, two_side)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def correct_batch(self, seqs, two_side: bool):
         out = [None] * len(seqs)
@@ -386,8 +491,8 @@ class Torch3Corrector:
         if self.mesh is not None:
             handles = self._dispatch_sharded(seqs, plans, two_side)
         else:
-            handles = [self._dispatch_chunk(seqs, idxs, starts, two_side)
-                       for idxs, starts in plans]
+            handles = [h for group in self._groups(plans)
+                       for h in self._dispatch_group(seqs, group, two_side)]
         capped = []
         if handles:
             # one fetch per array kind and device for the whole batch

@@ -26,7 +26,8 @@ from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.alignment import OP_DEL, OP_INS, OP_MATCH, OP_SUBST
 from br_tpu_torch.correct.layout import BPW
 from br_tpu_torch.correct.sites import (
-    Attempt, Sites, alt_next, check_site_args, empty_sites, run_sites_plain)
+    Attempt, Sites, alt_next, check_site_args, launch_sites,
+    run_sites_plain)
 
 TB_START = 4
 GAP_OPEN = GAP_EXT = -1
@@ -44,19 +45,18 @@ def check_ms(ms: int, nb: int) -> None:
 
 def greedy_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
                  ms: int, nb: int) -> Sites:
-    """Run every listed site of a ``greedy`` pass."""
-    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
+    """Run every listed site of a ``greedy`` pass, on a chunk or a group
+    (``sites.one_sites``)."""
+    lead = check_site_args(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k)
     check_ms(ms, nb)
     if kernels.on_cuda(codes):
-        NS = s_pos.shape[0]
-        out = empty_sites(NS, 1, codes.device)
-        name, tab, extra = kernels.table_kernel("greedy_sites", k, table)
-        kernels.launch(
-            name, codes, tab, kmers, s_pos, n_sites, rstart, rlen,
-            codes.shape[0], rstart.shape[0], k, ms, nb, NS, *out, *extra)
-        return out
-    return greedy_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
-                              rlen, k, ms, nb)
+        return launch_sites("greedy_sites", 1, lead, table, codes,
+                            (kmers, s_pos, n_sites, rstart, rlen), k,
+                            (ms, nb))
+    return kernels.each_chunk(greedy_sites_plain, (table,),
+                              (codes, kmers, s_pos, n_sites, rstart, rlen),
+                              (k, ms, nb))
 
 
 def align_tables(x, y):

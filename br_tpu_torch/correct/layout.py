@@ -65,7 +65,7 @@ def site_capacity(chunk: int) -> int:
 
 def check_slots(rstart) -> None:
     """The kernels stage the slot table in shared memory: at most MAX_R
-    slots per chunk."""
-    if not 1 <= rstart.shape[0] <= MAX_R:
+    slots per chunk (the last axis of a group's (NC, R) table)."""
+    if not 1 <= rstart.shape[-1] <= MAX_R:
         raise ValueError(f"1..{MAX_R} read slots per chunk, got "
-                         f"{rstart.shape[0]}")
+                         f"{rstart.shape[-1]}")

@@ -18,7 +18,10 @@ takes the kernel's 64-bit or sorted-table instantiation there
 (``kernels.table_kernel``).
 
 ``dense_probe`` launches ``csrc/dense_probe.cu`` for CUDA tensors and
-runs ``dense_probe_plain`` for CPU tensors.
+runs ``dense_probe_plain`` for CPU tensors.  It takes one chunk, or a
+group of NC chunks as one launch: (NC, CHUNK) codes and (NC, R) slot
+tables, every output with the same leading axis (``Dense``'s shapes
+after it).
 """
 
 from __future__ import annotations
@@ -47,46 +50,58 @@ class Dense(NamedTuple):
     cap_read: torch.Tensor  # (R,) bool the read has a site of rank >= NS
 
 
-def _check(table, codes, rstart, rlen, k: int, NS: int) -> None:
+def _check(table, codes, rstart, rlen, k: int, NS: int) -> tuple:
+    """The arguments' checks, once a call (a group's once); returns the
+    leading axes (``kernels.group_lead``)."""
     dc.check_k(k, dc.table_kind(table))
     dev = codes.device
-    kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(rstart, "rstart", torch.int32, dev)
-    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
+    lead = kernels.group_lead(codes)
+    kernels.check(codes, "codes", torch.uint8, dev, lead=lead)
+    kernels.check(rstart, "rstart", torch.int32, dev, lead=lead)
+    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[-1], lead)
     kernels.check_table(table, k, dev)
     check_slots(rstart)
-    if not 0 < codes.shape[0] < BIG or NS < 1:
+    if not 0 < codes.shape[-1] < BIG or NS < 1:
         raise ValueError("bad chunk or site capacity")
+    return lead
 
 
 def dense_probe(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
-    """Dense stage of one pass over a chunk (see the module docstring)."""
-    _check(table, codes, rstart, rlen, k, NS)
+    """Dense stage of one pass over a chunk or a group of chunks (see the
+    module docstring)."""
+    lead = _check(table, codes, rstart, rlen, k, NS)
     if kernels.on_cuda(codes):
-        return _dense_probe_cuda(table, codes, rstart, rlen, k, NS)
-    return dense_probe_plain(table, codes, rstart, rlen, k, NS)
+        return _dense_probe_cuda(table, codes, rstart, rlen, k, NS, lead)
+    return kernels.each_chunk(dense_probe_plain, (table,),
+                              (codes, rstart, rlen), (k, NS))
 
 
-def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int) -> Dense:
-    CHUNK, R, dev = codes.shape[0], rstart.shape[0], codes.device
-    kmers = torch.empty(CHUNK, dtype=dc.kmer_dtype(k, dc.table_kind(table)),
+def _dense_probe_cuda(table, codes, rstart, rlen, k: int, NS: int,
+                      lead: tuple) -> Dense:
+    CHUNK, R, dev = codes.shape[-1], rstart.shape[-1], codes.device
+    NC = kernels.group_nc(lead)
+    kmers = torch.empty(lead + (CHUNK,),
+                        dtype=dc.kmer_dtype(k, dc.table_kind(table)),
                         device=dev)
-    vraw = torch.empty(CHUNK, dtype=torch.bool, device=dev)
-    V = torch.empty(CHUNK, dtype=torch.bool, device=dev)
-    T = torch.empty(CHUNK, dtype=torch.bool, device=dev)
-    s_pos = torch.empty(NS, dtype=torch.int32, device=dev)  # BIG: kernel
-    n_sites = torch.empty(1, dtype=torch.int32, device=dev)
+    vraw = torch.empty(lead + (CHUNK,), dtype=torch.bool, device=dev)
+    V = torch.empty(lead + (CHUNK,), dtype=torch.bool, device=dev)
+    T = torch.empty(lead + (CHUNK,), dtype=torch.bool, device=dev)
+    s_pos = torch.empty(lead + (NS,), dtype=torch.int32,
+                        device=dev)  # BIG: kernel
+    n_sites = torch.empty(lead + (1,), dtype=torch.int32, device=dev)
     ntiles = (CHUNK + TILE - 1) // TILE
-    # one zero fill: the look-back state per tile, the tile ticket, and
-    # cap_read (bytes, which no tile writes for a read without a site of
-    # rank >= NS)
-    scratch = torch.zeros(ntiles + 1 + (R + 7) // 8, dtype=torch.int64,
+    # one zero fill: the look-back states (ntiles a chunk), one ticket a
+    # chunk, and cap_read (bytes, which no tile writes for a read without
+    # a site of rank >= NS)
+    states = NC * (ntiles + 1)
+    scratch = torch.zeros(states + (NC * R + 7) // 8, dtype=torch.int64,
                           device=dev)
-    cap_read = scratch[ntiles + 1:].view(torch.uint8)[:R].view(torch.bool)
+    cap_read = (scratch[states:].view(torch.uint8)[:NC * R]
+                .view(torch.bool).view(lead + (R,)))
     name, tab, extra = kernels.table_kernel("dense_probe", k, table)
     kernels.launch(
-        name, codes, tab, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V,
-        T, s_pos, cap_read, n_sites, scratch, scratch[ntiles:], *extra)
+        name, NC, codes, tab, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V,
+        T, s_pos, cap_read, n_sites, scratch, scratch[NC * ntiles:], *extra)
     return Dense(kmers, vraw, V, T, s_pos, n_sites, cap_read)
 
 

@@ -7,7 +7,9 @@ src/lib.rs:110-117), the slack after them is copied, and every code is
 masked to its two bits.
 
 ``reverse_slots`` launches ``csrc/reverse_slots.cu`` for CUDA tensors and
-runs ``reverse_slots_plain`` for CPU tensors.
+runs ``reverse_slots_plain`` for CPU tensors, on one chunk or on a group
+of NC chunks in one call ((NC, CHUNK) codes, (NC, R) slot tables), as
+``make_reverse3_fn(batch=True)`` vmaps it.
 """
 
 from __future__ import annotations
@@ -19,22 +21,20 @@ from br_tpu_torch.correct.layout import check_slots
 
 
 def reverse_slots(codes, rstart, rlen):
-    """(CHUNK,) uint8 codes with every read reversed inside its slot."""
+    """(CHUNK,) or (NC, CHUNK) uint8 codes with every read reversed
+    inside its slot."""
     dev = codes.device
-    kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(rstart, "rstart", torch.int32, dev)
-    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
+    lead = kernels.group_lead(codes)
+    kernels.check(codes, "codes", torch.uint8, dev, lead=lead)
+    kernels.check(rstart, "rstart", torch.int32, dev, lead=lead)
+    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[-1], lead)
     check_slots(rstart)
     if kernels.on_cuda(codes):
-        return _reverse_slots_cuda(codes, rstart, rlen)
-    return reverse_slots_plain(codes, rstart, rlen)
-
-
-def _reverse_slots_cuda(codes, rstart, rlen):
-    out = torch.empty_like(codes)
-    kernels.launch("reverse_slots", codes, rstart, rlen, out,
-                   codes.shape[0], rstart.shape[0])
-    return out
+        out = torch.empty_like(codes)
+        kernels.launch("reverse_slots", kernels.group_nc(lead), codes,
+                       rstart, rlen, out, codes.shape[-1], rstart.shape[-1])
+        return out
+    return kernels.each_chunk(reverse_slots_plain, (), (codes, rstart, rlen))
 
 
 def reverse_slots_plain(codes, rstart, rlen):

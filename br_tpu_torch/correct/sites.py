@@ -15,6 +15,9 @@ version drives with its own attempt.
 
 K2 ``one_sites`` (the One attempt, :300) launches ``csrc/one_sites.cu``
 for CUDA tensors and runs ``one_sites_plain`` for CPU tensors.  Every
+site kernel's wrapper takes one chunk, or a group of NC chunks as one
+launch (every chunk's array with a leading axis of NC, the table
+shared), and returns ``Sites`` with the same leading axis.  Every
 site kernel takes K1's k-mers (``device_codec.kmer_dtype``) and the
 pass's table, a solid bitfield or a sorted ``HashSet`` table, and
 launches the instantiation ``kernels.table_kernel`` names for them: the
@@ -55,30 +58,35 @@ class Attempt(NamedTuple):
 
 
 def check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen,
-                    k: int) -> None:
-    """What every site kernel's wrapper checks."""
+                    k: int) -> tuple:
+    """What every site kernel's wrapper checks, once a call (a group's
+    once); returns the leading axes (``kernels.group_lead``)."""
     kind = dc.table_kind(table)
     dc.check_k(k, kind)
     dev = codes.device
-    CHUNK = codes.shape[0]
-    kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(kmers, "kmers", dc.kmer_dtype(k, kind), dev, CHUNK)
-    kernels.check(s_pos, "s_pos", torch.int32, dev)
-    kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
-    kernels.check(rstart, "rstart", torch.int32, dev)
-    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[0])
+    lead = kernels.group_lead(codes)
+    CHUNK = codes.shape[-1]
+    kernels.check(codes, "codes", torch.uint8, dev, lead=lead)
+    kernels.check(kmers, "kmers", dc.kmer_dtype(k, kind), dev, CHUNK, lead)
+    kernels.check(s_pos, "s_pos", torch.int32, dev, lead=lead)
+    kernels.check(n_sites, "n_sites", torch.int32, dev, 1, lead)
+    kernels.check(rstart, "rstart", torch.int32, dev, lead=lead)
+    kernels.check(rlen, "rlen", torch.int32, dev, rstart.shape[-1], lead)
     kernels.check_table(table, k, dev)
     check_slots(rstart)
+    return lead
 
 
-def empty_sites(NS: int, EW: int, dev) -> Sites:
+def empty_sites(NS: int, EW: int, dev, lead: tuple = ()) -> Sites:
     """Output buffers of a site kernel (it writes the entries that
-    ``defined`` keeps, and leaves the rest as they are)."""
-    rec = torch.empty((3, NS * SLOTS), dtype=torch.int32, device=dev)
-    return Sites(torch.empty(NS, dtype=torch.int32, device=dev),
-                 torch.empty(NS, dtype=torch.int32, device=dev),
+    ``defined`` keeps, and leaves the rest as they are), each with the
+    leading axes ``lead``."""
+    rec = torch.empty((3,) + lead + (NS * SLOTS,), dtype=torch.int32,
+                      device=dev)
+    return Sites(torch.empty(lead + (NS,), dtype=torch.int32, device=dev),
+                 torch.empty(lead + (NS,), dtype=torch.int32, device=dev),
                  rec[0], rec[1], rec[2],
-                 torch.empty((NS * SLOTS, EW), dtype=torch.int32,
+                 torch.empty(lead + (NS * SLOTS, EW), dtype=torch.int32,
                              device=dev))
 
 
@@ -89,8 +97,8 @@ def defined(s: Sites) -> Sites:
     plain versions write those entries as 0, so a kernel and its plain
     version are compared through this."""
     used = s.rec_p < BIG
-    words = torch.arange(s.rec_e.shape[1], device=s.rec_e.device)
-    live = used[:, None] & (words[None, :] * 16 < s.rec_c[:, None])
+    words = torch.arange(s.rec_e.shape[-1], device=s.rec_e.device)
+    live = used[..., None] & (words * 16 < s.rec_c[..., None])
     zero = torch.zeros((), dtype=torch.int32, device=s.rec_p.device)
     return Sites(s.succ, s.s_cap, s.rec_p, torch.where(used, s.rec_c, zero),
                  torch.where(used, s.rec_s, zero),
@@ -105,24 +113,33 @@ def as_i32(x: torch.Tensor) -> torch.Tensor:
 def one_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
               c: int) -> Sites:
     """Run every listed site of a ``one`` pass (see the module docstring)."""
-    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
+    lead = check_site_args(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k)
     if c < 0:
         raise ValueError(f"confirm must be >= 0, got {c}")
     if kernels.on_cuda(codes):
-        return _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart,
-                               rlen, k, c)
-    return one_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
-                           rlen, k, c)
+        return launch_sites("one_sites", 1, lead, table, codes,
+                            (kmers, s_pos, n_sites, rstart, rlen), k, (c,))
+    return kernels.each_chunk(one_sites_plain, (table,),
+                              (codes, kmers, s_pos, n_sites, rstart, rlen),
+                              (k, c))
 
 
-def _one_sites_cuda(table, codes, kmers, s_pos, n_sites, rstart, rlen,
-                    k: int, c: int) -> Sites:
-    NS = s_pos.shape[0]
-    out = empty_sites(NS, 1, codes.device)
-    name, tab, extra = kernels.table_kernel("one_sites", k, table)
+def launch_sites(kernel: str, EW: int, lead: tuple, table, codes, chunked,
+                 k: int, params: tuple, after: tuple = ()) -> Sites:
+    """Launch a site kernel's instantiation for ``table`` on a chunk or
+    a group (leading axes ``lead``), with the arguments every site kernel
+    takes in its order: NC, codes, the table, ``chunked`` (the chunk's
+    arrays after the codes, ending in s_pos, n_sites, rstart, rlen),
+    CHUNK, R, k, ``params`` (the strategy's), NS, ``after``, the output
+    buffers (EW emit words a record) and the table's trailing
+    arguments."""
+    NS = chunked[-4].shape[-1]
+    out = empty_sites(NS, EW, codes.device, lead)
+    name, tab, extra = kernels.table_kernel(kernel, k, table)
     kernels.launch(
-        name, codes, tab, kmers, s_pos, n_sites, rstart, rlen,
-        codes.shape[0], rstart.shape[0], k, c, NS, *out, *extra)
+        name, kernels.group_nc(lead), codes, tab, *chunked, codes.shape[-1],
+        chunked[-1].shape[-1], k, *params, NS, *after, *out, *extra)
     return out
 
 

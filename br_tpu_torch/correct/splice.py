@@ -21,7 +21,9 @@ before the first slot.  ``aux`` entries 0-4 and 7 are filled here; 5 and
 (``engine3.make_pass3_fn``).
 
 ``chain_splice`` launches ``csrc/chain_splice.cu`` for CUDA tensors and
-runs ``chain_splice_plain`` for CPU tensors.
+runs ``chain_splice_plain`` for CPU tensors, on one chunk or on a group
+of NC chunks in one call (every argument and result with a leading axis
+of NC; ``aux`` (NC, 8)).
 """
 
 from __future__ import annotations
@@ -50,53 +52,58 @@ class Spliced(NamedTuple):
 
 def chain_splice(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
                  cap_dense) -> Spliced:
-    """Walk every read's site chain and splice its output."""
+    """Walk every read's site chain and splice its output, on a chunk
+    or a group of chunks."""
     dev = codes.device
-    NS, R = s_pos.shape[0], rstart.shape[0]
-    kernels.check(codes, "codes", torch.uint8, dev)
-    kernels.check(rstart, "rstart", torch.int32, dev)
-    kernels.check(rlen, "rlen", torch.int32, dev, R)
+    lead = kernels.group_lead(codes)
+    NS, R = s_pos.shape[-1], rstart.shape[-1]
+    kernels.check(codes, "codes", torch.uint8, dev, lead=lead)
+    kernels.check(rstart, "rstart", torch.int32, dev, lead=lead)
+    kernels.check(rlen, "rlen", torch.int32, dev, R, lead)
     check_slots(rstart)
-    kernels.check(s_pos, "s_pos", torch.int32, dev)
-    kernels.check(n_sites, "n_sites", torch.int32, dev, 1)
-    kernels.check(cap_dense, "cap_dense", torch.bool, dev, R)
+    kernels.check(s_pos, "s_pos", torch.int32, dev, lead=lead)
+    kernels.check(n_sites, "n_sites", torch.int32, dev, 1, lead)
+    kernels.check(cap_dense, "cap_dense", torch.bool, dev, R, lead)
     for name in ("succ", "s_cap"):
-        kernels.check(getattr(sites, name), name, torch.int32, dev, NS)
+        kernels.check(getattr(sites, name), name, torch.int32, dev, NS,
+                      lead)
     for name in ("rec_p", "rec_c", "rec_s"):
         kernels.check(getattr(sites, name), name, torch.int32, dev,
-                      NS * SLOTS)
+                      NS * SLOTS, lead)
     re = sites.rec_e
-    if (re.dtype != torch.int32 or re.device != dev or re.dim() != 2
-            or re.shape[0] != NS * SLOTS or not re.is_contiguous()):
+    if (re.dtype != torch.int32 or re.device != dev
+            or re.dim() != len(lead) + 2 or tuple(re.shape[:-2]) != lead
+            or re.shape[-2] != NS * SLOTS or not re.is_contiguous()):
         raise ValueError("rec_e must be a contiguous (NS*SLOTS, EW) int32 "
-                         "tensor on the codes' device")
+                         "tensor a chunk on the codes' device")
     if kernels.on_cuda(codes):
         return _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites,
-                                  sites, cap_dense)
-    return chain_splice_plain(codes, rstart, rlen, s_pos, n_sites, sites,
-                              cap_dense)
+                                  sites, cap_dense, lead)
+    return kernels.each_chunk(chain_splice_plain, (),
+                              (codes, rstart, rlen, s_pos, n_sites, sites,
+                               cap_dense))
 
 
 def _chain_splice_cuda(codes, rstart, rlen, s_pos, n_sites, sites: Sites,
-                       cap_dense) -> Spliced:
-    CHUNK, R, NS, dev = (codes.shape[0], rstart.shape[0], s_pos.shape[0],
+                       cap_dense, lead: tuple) -> Spliced:
+    CHUNK, R, NS, dev = (codes.shape[-1], rstart.shape[-1], s_pos.shape[-1],
                          codes.device)
-    EW = sites.rec_e.shape[1]
+    EW = sites.rec_e.shape[-1]
     # segment tables (output offset, verbatim start and length, record
     # row), one region per read (its site range), and per read its body
     # length, last record end, table start and size: written by the walk
     # kernel, read by the copy kernel, which writes every position of out
-    seg = torch.empty((4, NS * SLOTS), dtype=torch.int32, device=dev)
-    rtab = torch.empty((4, R), dtype=torch.int32, device=dev)
-    out = torch.empty(CHUNK, dtype=torch.uint8, device=dev)
-    out_len = torch.empty(R, dtype=torch.int32, device=dev)
-    cap = torch.empty(R, dtype=torch.bool, device=dev)
-    rec_cnt = torch.empty(R, dtype=torch.int32, device=dev)
-    aux = torch.zeros(8, dtype=torch.int32, device=dev)
+    seg = torch.empty(lead + (4, NS * SLOTS), dtype=torch.int32, device=dev)
+    rtab = torch.empty(lead + (4, R), dtype=torch.int32, device=dev)
+    out = torch.empty(lead + (CHUNK,), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(lead + (R,), dtype=torch.int32, device=dev)
+    cap = torch.empty(lead + (R,), dtype=torch.bool, device=dev)
+    rec_cnt = torch.empty(lead + (R,), dtype=torch.int32, device=dev)
+    aux = torch.zeros(lead + (8,), dtype=torch.int32, device=dev)
     kernels.launch(
-        "chain_splice", codes, rstart, rlen, s_pos, n_sites, *sites,
-        cap_dense, CHUNK, R, NS, EW, seg, rtab, out, out_len, cap, rec_cnt,
-        aux)
+        "chain_splice", kernels.group_nc(lead), codes, rstart, rlen, s_pos,
+        n_sites, *sites, cap_dense, CHUNK, R, NS, EW, seg, rtab, out,
+        out_len, cap, rec_cnt, aux)
     return Spliced(out, out_len, cap, rec_cnt, aux)
 
 

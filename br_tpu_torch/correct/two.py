@@ -21,7 +21,7 @@ import torch
 from br_tpu_torch import kernels
 from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.sites import (
-    Attempt, Sites, alt_last, alt_next, check_site_args, empty_sites,
+    Attempt, Sites, alt_last, alt_next, check_site_args, launch_sites,
     run_sites_plain)
 
 #: per scenario, in exist/two.rs's order: II IS SS SD DD ICI ICS ICD SCI
@@ -37,20 +37,18 @@ EMIT_CORR = (True, True, False, False, False, True, False, False, False,
 
 def two_sites(table, codes, kmers, s_pos, n_sites, rstart, rlen, k: int,
               c: int) -> Sites:
-    """Run every listed site of a ``two`` pass."""
-    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
+    """Run every listed site of a ``two`` pass, on a chunk or a group
+    (``sites.one_sites``)."""
+    lead = check_site_args(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k)
     if c < 0:
         raise ValueError(f"confirm must be >= 0, got {c}")
     if kernels.on_cuda(codes):
-        NS = s_pos.shape[0]
-        out = empty_sites(NS, 1, codes.device)
-        name, tab, extra = kernels.table_kernel("two_sites", k, table)
-        kernels.launch(
-            name, codes, tab, kmers, s_pos, n_sites, rstart, rlen,
-            codes.shape[0], rstart.shape[0], k, c, NS, *out, *extra)
-        return out
-    return two_sites_plain(table, codes, kmers, s_pos, n_sites, rstart,
-                           rlen, k, c)
+        return launch_sites("two_sites", 1, lead, table, codes,
+                            (kmers, s_pos, n_sites, rstart, rlen), k, (c,))
+    return kernels.each_chunk(two_sites_plain, (table,),
+                              (codes, kmers, s_pos, n_sites, rstart, rlen),
+                              (k, c))
 
 
 def two_scenarios(probe, code_at, k: int, ii, corr, rem):

@@ -31,7 +31,7 @@ from br_tpu_torch.correct import device_codec as dc
 from br_tpu_torch.correct.layout import (
     ACCEPT, BIG, BPW, CAP, DECLINE, RUN, T3_CAP, WALK_MAX, walk_profile)
 from br_tpu_torch.correct.sites import (
-    Attempt, Sites, alt_next, check_site_args, empty_sites,
+    Attempt, Sites, alt_next, check_site_args, launch_sites,
     one_attempt_plain, run_sites_plain)
 
 #: the kernel's mode argument per strategy.
@@ -41,30 +41,27 @@ MODES = {"graph": 0, "gap-size": 1}
 def walk_sites(table, codes, kmers, V, s_pos, n_sites, rstart, rlen,
                k: int, c: int, strategy: str,
                walk_max: int = WALK_MAX) -> Sites:
-    """Run every listed site of a ``graph`` or ``gap-size`` pass; ``V`` is
-    K1's validity mask (the error length's jump to the next valid
-    position)."""
-    check_site_args(table, codes, kmers, s_pos, n_sites, rstart, rlen, k)
-    kernels.check(V, "V", torch.bool, codes.device, codes.shape[0])
+    """Run every listed site of a ``graph`` or ``gap-size`` pass, on a
+    chunk or a group (``sites.one_sites``); ``V`` is K1's validity mask
+    (the error length's jump to the next valid position)."""
+    lead = check_site_args(table, codes, kmers, s_pos, n_sites, rstart,
+                           rlen, k)
+    kernels.check(V, "V", torch.bool, codes.device, codes.shape[-1], lead)
     mode = MODES[strategy]
     wp = walk_profile(walk_max)
     if c < 0:
         raise ValueError(f"confirm must be >= 0, got {c}")
     if kernels.on_cuda(codes):
-        # the kernel scans V 16 bytes a lane
-        if codes.shape[0] % 16 or V.data_ptr() % 16:
+        # the kernel scans V 16 bytes a lane, every chunk's
+        if codes.shape[-1] % 16 or V.data_ptr() % 16:
             raise ValueError("walk_sites needs a chunk of a multiple of 16 "
                              "positions and a 16-byte aligned V")
-        NS = s_pos.shape[0]
-        out = empty_sites(NS, wp.ew, codes.device)
-        name, tab, extra = kernels.table_kernel("walk_sites", k, table)
-        kernels.launch(
-            name, codes, tab, kmers, V, s_pos, n_sites, rstart, rlen,
-            codes.shape[0], rstart.shape[0], k, c, NS, mode, walk_max, wp.ew,
-            *out, *extra)
-        return out
-    return walk_sites_plain(table, codes, kmers, V, s_pos, n_sites, rstart,
-                            rlen, k, c, strategy, walk_max)
+        return launch_sites("walk_sites", wp.ew, lead, table, codes,
+                            (kmers, V, s_pos, n_sites, rstart, rlen), k,
+                            (c,), (mode, walk_max, wp.ew))
+    return kernels.each_chunk(walk_sites_plain, (table,),
+                              (codes, kmers, V, s_pos, n_sites, rstart,
+                               rlen), (k, c, strategy, walk_max))
 
 
 def next_valid(V):

@@ -71,6 +71,12 @@
 // A one-kernel version of this design kept the copy in K3a, 16 bytes a
 // thread from a segment table in shared memory: the copy of the longest
 // read then ran on one SM with 8 warps and set the kernel's time.
+//
+// A call takes NC chunks of one geometry (a group): both kernels run
+// chunk blockIdx.y, its arrays at a stride of one chunk (codes and out
+// CHUNK; slots, cap_dense and the per-read results R, rtab 4 R; sites
+// NS, one n_sites; records NS * SLOTS, the segment tables 4 NS * SLOTS,
+// emit words NS * SLOTS * EW; eight aux words).
 #include "common.cuh"
 
 #define K3_THREADS 256
@@ -121,6 +127,27 @@ __global__ void __launch_bounds__(K3_THREADS) splice_walk_kernel(
   __shared__ int sh_nvis;
   __shared__ int sh_end[K3_WARPS];
   __shared__ int2 sh_sum[K3_WARPS];
+
+  {  // this block's chunk
+    const size_t y = blockIdx.y;
+    const unsigned r = R, ns = NS, nrec = ns * BR_SLOTS;
+    rstart += y * r;
+    rlen += y * r;
+    s_pos += y * ns;
+    n_sites += y;
+    succ += y * ns;
+    s_cap += y * ns;
+    rec_p += y * nrec;
+    rec_c += y * nrec;
+    rec_s += y * nrec;
+    cap_dense += y * r;
+    seg += y * (4 * nrec);
+    rtab += y * (4 * r);
+    out_len += y * r;
+    cap += y * r;
+    rec_cnt += y * r;
+    aux += y * 8;
+  }
 
   const int r = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -424,6 +451,17 @@ __global__ void __launch_bounds__(K3_THREADS) splice_copy_kernel(
     const int32_t* __restrict__ rtab, const int32_t* __restrict__ out_len,
     int CHUNK, int R, int NS, int EW, uint8_t* __restrict__ out) {
   __shared__ int32_t sh_start[BR_MAX_R];
+  {  // this block's chunk
+    const size_t y = blockIdx.y;
+    const unsigned chunk = CHUNK, r = R, nrec = (unsigned)NS * BR_SLOTS;
+    codes += y * chunk;
+    rstart += y * r;
+    rec_e += y * (nrec * (unsigned)EW);
+    seg += y * (4 * nrec);
+    rtab += y * (4 * r);
+    out_len += y * r;
+    out += y * chunk;
+  }
   for (int i = threadIdx.x; i < R; i += K3_THREADS) sh_start[i] = rstart[i];
   __syncthreads();
   const int gc = (blockIdx.x * K3_THREADS + threadIdx.x) << 4;
@@ -551,14 +589,14 @@ __global__ void __launch_bounds__(K3_THREADS) splice_copy_kernel(
 }
 
 extern "C" int br_chain_splice(
-    const void* codes, const void* rstart, const void* rlen,
+    int NC, const void* codes, const void* rstart, const void* rlen,
     const void* s_pos, const void* n_sites, const void* succ,
     const void* s_cap, const void* rec_p, const void* rec_c,
     const void* rec_s, const void* rec_e, const void* cap_dense, int CHUNK,
     int R, int NS, int EW, void* seg, void* rtab, void* out,
     void* out_len, void* cap, void* rec_cnt, void* aux, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  splice_walk_kernel<<<R, K3_THREADS, 0, st>>>(
+  splice_walk_kernel<<<dim3(R, NC), K3_THREADS, 0, st>>>(
       (const int32_t*)rstart, (const int32_t*)rlen, (const int32_t*)s_pos,
       (const int32_t*)n_sites, (const int32_t*)succ, (const int32_t*)s_cap,
       (const int32_t*)rec_p, (const int32_t*)rec_c, (const int32_t*)rec_s,
@@ -568,8 +606,8 @@ extern "C" int br_chain_splice(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int runs = (CHUNK + 15) / 16;
-  splice_copy_kernel<<<(runs + K3_THREADS - 1) / K3_THREADS, K3_THREADS, 0,
-                       st>>>(
+  splice_copy_kernel<<<dim3((runs + K3_THREADS - 1) / K3_THREADS, NC),
+                       K3_THREADS, 0, st>>>(
       (const uint8_t*)codes, (const int32_t*)rstart, (const int32_t*)rec_e,
       (const int32_t*)seg, (const int32_t*)rtab, (const int32_t*)out_len,
       CHUNK, R, NS, EW, (uint8_t*)out);

@@ -46,6 +46,15 @@
 // The wrapper keeps one zero fill: the look-back states, the ticket and
 // cap_read (a read without a site of rank >= NS is written by no tile).
 //
+// A launch takes NC chunks of one geometry (a group), chunk blockIdx.y:
+// its arrays at a stride of one chunk (codes, k-mers and the masks CHUNK,
+// slots and cap_read R, sites NS, one n_sites), its own tile states
+// (ntiles a chunk) and its own ticket (one 8-byte word a chunk, after
+// all the states).  A tile takes its rank from its chunk's ticket, never
+// from block order, so it waits only on tiles of its chunk already
+// running, in whatever order the chunks' blocks are scheduled.  NC = 1 is
+// the one-chunk layout: states, ticket, cap_read.
+//
 // Three instantiations from one source: br_dense_probe (uint32_t k-mers
 // written as int32, a bitfield at k <= 15), br_dense_probe64 (uint64_t,
 // int64, a bitfield at k = 17) and br_dense_probe_h (uint64_t, int64, the
@@ -109,21 +118,37 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
     int32_t* __restrict__ s_pos, uint8_t* __restrict__ cap_read,
     int32_t* __restrict__ n_sites,
     unsigned long long* __restrict__ tile_state,
-    unsigned int* __restrict__ ticket) {
+    unsigned long long* __restrict__ tickets) {
   __shared__ int32_t sh_start[BR_MAX_R];
   __shared__ int32_t sh_len[BR_MAX_R];
   __shared__ int sh_warp[K1_WARPS];
   __shared__ int sh_tile, sh_total, sh_excl;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) sh_tile = (int)atomicAdd(ticket, 1u);
+  const int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
+  {  // this block's chunk
+    const size_t y = blockIdx.y;
+    codes += y * CHUNK;
+    rstart += y * R;
+    rlen += y * R;
+    kmers_out = static_cast<char*>(kmers_out) + y * CHUNK * sizeof(Reg);
+    vraw += y * CHUNK;
+    V += y * CHUNK;
+    T += y * CHUNK;
+    s_pos += y * NS;
+    cap_read += y * R;
+    n_sites += y;
+    tile_state += y * ntiles;
+    tickets += y;
+  }
+  if (tid == 0)
+    sh_tile = (int)atomicAdd(reinterpret_cast<unsigned int*>(tickets), 1u);
   for (int r = tid; r < R; r += K1_THREADS) {
     sh_start[r] = rstart[r];
     sh_len[r] = rlen[r];
   }
   __syncthreads();
   const int tile = sh_tile;
-  const int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
   const int p0 = tile * K1_TILE + tid * K1_RUN;
   const Reg kmask = br_kmask<Reg>(k);
   const bool vec = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
@@ -306,29 +331,29 @@ __global__ void __launch_bounds__(K1_THREADS) dense_probe_kernel(
 
 template <class Reg, class P>
 static int dense_probe_launch(
-    const void* codes, P probe, const void* rstart,
+    int NC, const void* codes, P probe, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int NS, void* kmers,
     void* vraw, void* V, void* T, void* s_pos, void* cap_read,
-    void* n_sites, void* tile_state, void* ticket, void* stream) {
-  int ntiles = (CHUNK + K1_TILE - 1) / K1_TILE;
-  dense_probe_kernel<Reg, P><<<ntiles, K1_THREADS, 0,
+    void* n_sites, void* tile_state, void* tickets, void* stream) {
+  const dim3 grid((CHUNK + K1_TILE - 1) / K1_TILE, NC);
+  dense_probe_kernel<Reg, P><<<grid, K1_THREADS, 0,
                                (cudaStream_t)stream>>>(
       (const uint8_t*)codes, probe,
       (const int32_t*)rstart, (const int32_t*)rlen, CHUNK, R, k, NS, kmers,
       (uint8_t*)vraw, (uint8_t*)V, (uint8_t*)T, (int32_t*)s_pos,
       (uint8_t*)cap_read, (int32_t*)n_sites,
-      (unsigned long long*)tile_state, (unsigned int*)ticket);
+      (unsigned long long*)tile_state, (unsigned long long*)tickets);
   return (int)cudaGetLastError();
 }
 
 #define K1_ARGS                                                           \
-  const void *codes, const void *table, const void *rstart,               \
+  int NC, const void *codes, const void *table, const void *rstart,       \
       const void *rlen, int CHUNK, int R, int k, int NS, void *kmers,     \
       void *vraw, void *V, void *T, void *s_pos, void *cap_read,          \
-      void *n_sites, void *tile_state, void *ticket
+      void *n_sites, void *tile_state, void *tickets
 #define K1_PASS(probe)                                                    \
-  codes, probe, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V, T, s_pos,  \
-      cap_read, n_sites, tile_state, ticket, stream
+  NC, codes, probe, rstart, rlen, CHUNK, R, k, NS, kmers, vraw, V, T,     \
+      s_pos, cap_read, n_sites, tile_state, tickets, stream
 
 extern "C" int br_dense_probe(K1_ARGS, void* stream) {
   return dense_probe_launch<uint32_t>(

@@ -376,13 +376,14 @@ __device__ __forceinline__ BrAttempt<T> greedy_attempt(
   return res;
 }
 
-template <class T, class P>
+template <class T, class P, bool G>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     greedy_sites_kernel(BrSites<P> a, int ms, int nb) {
   __shared__ uint16_t sh_tb[BR_WARP_SITES][greedy_tb_words<T, P>()];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
+  if constexpr (G) a = br_sites_chunk<T>(a);
   uint16_t* tb = sh_tb[warp];
   auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
     return greedy_attempt<T>(a, ms, nb, lane, tb, i, reg, corr, lenf,
@@ -393,7 +394,7 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
 
 template <class T, class P>
 static int greedy_sites_launch(
-    const void* codes, P probe, const void* kmers,
+    int NC, const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int ms, int nb, int NS,
     void* succ, void* s_cap, void* rec_p, void* rec_c, void* rec_s,
@@ -401,21 +402,22 @@ static int greedy_sites_launch(
   BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
                                rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                                rec_c, rec_s, rec_e);
-  greedy_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                              BR_SITE_THREADS, 0, (cudaStream_t)stream>>>(
-      a, ms, nb);
+  auto kern = NC > 1 ? &greedy_sites_kernel<T, P, true>
+                     : &greedy_sites_kernel<T, P, false>;
+  kern<<<br_warp_site_grid(NS, BR_WARP_SITES, NC), BR_SITE_THREADS, 0,
+         (cudaStream_t)stream>>>(a, ms, nb);
   return (int)cudaGetLastError();
 }
 
 #define GREEDY_ARGS                                                       \
-  const void *codes, const void *table, const void *kmers,                \
+  int NC, const void *codes, const void *table, const void *kmers,      \
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int ms, int nb, int NS,  \
       void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
       void *rec_e
 #define GREEDY_LAUNCH(T, probe)                                           \
-  greedy_sites_launch<T>(codes, probe, kmers, s_pos, n_sites, rstart,     \
-                         rlen, CHUNK, R, k, ms, nb, NS, succ, s_cap,      \
-                         rec_p, rec_c, rec_s, rec_e, stream)
+  greedy_sites_launch<T>(NC, codes, probe, kmers, s_pos, n_sites,         \
+                         rstart, rlen, CHUNK, R, k, ms, nb, NS, succ,     \
+                         s_cap, rec_p, rec_c, rec_s, rec_e, stream)
 
 BR_SITE_ENTRIES(br_greedy_sites, GREEDY_ARGS, GREEDY_LAUNCH)

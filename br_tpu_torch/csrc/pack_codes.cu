@@ -20,6 +20,11 @@
 // Bound on the H100: bytes.  n + 4 n bytes moved, 1.3 MB at CHUNK = 2^20:
 // ~0.0004 ms at 3.35 TB/s, below a launch; the kernels are there so that
 // the chain's entry and exit are one launch each and run on the device.
+// The engine launches each once for a group of NC chunks, on its NC *
+// CHUNK / 4 packed bytes as one flat array (a chunk's packed row is
+// CHUNK / 4 bytes, so chunk boundaries need no alignment of their own),
+// so the bound grows with NC and the launch stays one; lengths and
+// offsets are long long, past 2^31 codes.
 #include "common.cuh"
 
 #define K11_THREADS 256

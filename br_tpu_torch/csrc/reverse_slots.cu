@@ -41,6 +41,8 @@
 //  * a thread whose slot lies past the 32 its warp loaded (more than 31
 //    slots start in the warp's 512 positions) finds it by its own binary
 //    search of rstart.
+// A launch takes NC chunks of one geometry (a group), chunk blockIdx.y:
+// codes and out at a stride of CHUNK, the slot table at R.
 #include "common.cuh"
 
 #define K4_THREADS 128
@@ -91,6 +93,14 @@ __global__ void __launch_bounds__(K4_THREADS) reverse_slots_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ rstart,
     const int32_t* __restrict__ rlen, uint8_t* __restrict__ out, int CHUNK,
     int R, int vec) {
+  {  // this block's chunk
+    const size_t y = blockIdx.y;
+    const unsigned chunk = CHUNK, r = R;
+    codes += y * chunk;
+    out += y * chunk;
+    rstart += y * r;
+    rlen += y * r;
+  }
   const int lane = threadIdx.x & 31;
   const int w0 = (blockIdx.x * K4_THREADS + (threadIdx.x & ~31)) * K4_RUN;
   if (w0 >= CHUNK) return;  // the whole warp
@@ -211,15 +221,16 @@ __global__ void __launch_bounds__(K4_THREADS) reverse_slots_kernel(
   }
 }
 
-extern "C" int br_reverse_slots(const void* codes, const void* rstart,
-                                const void* rlen, void* out, int CHUNK,
-                                int R, void* stream) {
+extern "C" int br_reverse_slots(int NC, const void* codes,
+                                const void* rstart, const void* rlen,
+                                void* out, int CHUNK, int R, void* stream) {
   const int vec = CHUNK % 16 == 0 &&
                   ((reinterpret_cast<uintptr_t>(codes) |
                     reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
   const int runs = (CHUNK + K4_RUN - 1) / K4_RUN;
   const int nblocks = (runs + K4_THREADS - 1) / K4_THREADS;
-  reverse_slots_kernel<<<nblocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
+  reverse_slots_kernel<<<dim3(nblocks, NC), K4_THREADS, 0,
+                         (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const int32_t*)rstart, (const int32_t*)rlen,
       (uint8_t*)out, CHUNK, R, vec);
   return (int)cudaGetLastError();

@@ -16,7 +16,10 @@
 // warp's chain has as many dependent L2 round trips as it has gates,
 // attempt rounds and dirty windows, in place of one per probe, and NS
 // warps (2 a block for K2 and K5, 8 for K6 and K7, whose warps hold
-// shared memory) keep every SM's schedulers fed.
+// shared memory) keep every SM's schedulers fed.  A launch takes a group
+// of NC chunks of one geometry against one table: blockIdx.y is the
+// chunk, and br_sites_chunk moves a block to its chunk's arrays, so a
+// chunk's chains are those of a launch of its own.
 //
 // A chain step is: the exactly-one-alternative gate (_alt_info32_arr,
 // :966); the strategy's attempt; a repair record when it applies (at most
@@ -442,9 +445,41 @@ static inline BrSites<P> br_sites_args(
   return a;
 }
 
-// blocks of a warp-per-site kernel with per_block sites a block
-static inline int br_warp_site_blocks(int NS, int per_block) {
-  return (NS + per_block - 1) / per_block;
+// The chunk of a group that a block works on: a site kernel takes NC
+// chunks of one geometry in one launch, chunk blockIdx.y.  Every
+// per-chunk array is advanced to that chunk's, at a stride of one chunk:
+// codes and K1's k-mers CHUNK, slots R, sites NS, one n_sites, records
+// NS * SLOTS, emit words NS * SLOTS * EW.  The table is the group's.
+// Each site kernel has a grouped instantiation (G), which does this, and
+// a one-chunk one, launched for NC = 1, which reads its arguments as they
+// are.  A short chain's warp pays the moves in its setup, and the moved
+// pointers in registers: with the grouped code alone, NC = 1 ran K2 9 %,
+// K6 14-16 % and K7 12 % slower than without a chunk axis on an H100
+// (chip_smoke.py --baseline).  K1, K3 and K4 have the grouped code
+// alone: at NC = 1 it ran them at 1.00-1.02x.
+template <class T, class P>
+__device__ __forceinline__ BrSites<P> br_sites_chunk(BrSites<P> a) {
+  const size_t y = blockIdx.y;
+  const size_t ns = (size_t)a.NS, nrec = ns * BR_SLOTS;
+  a.codes += y * a.CHUNK;
+  a.kmers = static_cast<const char*>(a.kmers) + y * a.CHUNK * sizeof(T);
+  a.s_pos += y * ns;
+  a.n_sites += y;
+  a.rstart += y * a.R;
+  a.rlen += y * a.R;
+  a.succ += y * ns;
+  a.s_cap += y * ns;
+  a.rec_p += y * nrec;
+  a.rec_c += y * nrec;
+  a.rec_s += y * nrec;
+  a.rec_e += y * nrec * a.EW;
+  return a;
+}
+
+// the grid of a warp-per-site kernel with per_block sites a block: x the
+// chunk's site blocks, y its NC chunks
+static inline dim3 br_warp_site_grid(int NS, int per_block, int NC) {
+  return dim3((NS + per_block - 1) / per_block, NC);
 }
 
 // The three entry points of a site kernel: <entry> (uint32_t, bitfield),

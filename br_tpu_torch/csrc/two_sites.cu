@@ -260,12 +260,13 @@ __device__ __forceinline__ BrAttempt<T> two_attempt_warp(
   return res;
 }
 
-template <class T, class P>
+template <class T, class P, bool G>
 __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
     two_sites_kernel(BrSites<P> a, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_PAIR_SITES + warp;
   if (sid >= a.NS) return;
+  if constexpr (G) a = br_sites_chunk<T>(a);
   auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
     return two_attempt_warp<T>(a, c, lane, i, reg, corr, lenf, erow);
   };
@@ -274,7 +275,7 @@ __global__ void __launch_bounds__(32 * BR_PAIR_SITES)
 
 template <class T, class P>
 static int two_sites_launch(
-    const void* codes, P probe, const void* kmers,
+    int NC, const void* codes, P probe, const void* kmers,
     const void* s_pos, const void* n_sites, const void* rstart,
     const void* rlen, int CHUNK, int R, int k, int c, int NS, void* succ,
     void* s_cap, void* rec_p, void* rec_c, void* rec_s, void* rec_e,
@@ -282,21 +283,22 @@ static int two_sites_launch(
   BrSites<P> a = br_sites_args(codes, probe, kmers, s_pos, n_sites, rstart,
                                rlen, CHUNK, R, k, NS, 1, succ, s_cap, rec_p,
                                rec_c, rec_s, rec_e);
-  two_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_PAIR_SITES),
-                           32 * BR_PAIR_SITES, 0, (cudaStream_t)stream>>>(
-      a, c);
+  auto kern = NC > 1 ? &two_sites_kernel<T, P, true>
+                     : &two_sites_kernel<T, P, false>;
+  kern<<<br_warp_site_grid(NS, BR_PAIR_SITES, NC), 32 * BR_PAIR_SITES, 0,
+         (cudaStream_t)stream>>>(a, c);
   return (int)cudaGetLastError();
 }
 
 #define TWO_ARGS                                                          \
-  const void *codes, const void *table, const void *kmers,                \
+  int NC, const void *codes, const void *table, const void *kmers,      \
       const void *s_pos, const void *n_sites, const void *rstart,         \
       const void *rlen, int CHUNK, int R, int k, int c, int NS,           \
       void *succ, void *s_cap, void *rec_p, void *rec_c, void *rec_s,     \
       void *rec_e
 #define TWO_LAUNCH(T, probe)                                              \
-  two_sites_launch<T>(codes, probe, kmers, s_pos, n_sites, rstart, rlen,  \
-                      CHUNK, R, k, c, NS, succ, s_cap, rec_p, rec_c,      \
-                      rec_s, rec_e, stream)
+  two_sites_launch<T>(NC, codes, probe, kmers, s_pos, n_sites, rstart,    \
+                      rlen, CHUNK, R, k, c, NS, succ, s_cap, rec_p,       \
+                      rec_c, rec_s, rec_e, stream)
 
 BR_SITE_ENTRIES(br_two_sites, TWO_ARGS, TWO_LAUNCH)

@@ -231,7 +231,7 @@ __device__ __forceinline__ BrAttempt<T> walk_attempt(
   return r;
 }
 
-template <class T, class P>
+template <class T, class P, bool G>
 __global__ void __launch_bounds__(BR_SITE_THREADS)
     walk_sites_kernel(BrSites<P> a, WalkCtx w, int mode, int c) {
   // BR_WARP_SITES x (walk_max+1) k-mers of type T
@@ -239,6 +239,8 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sid = blockIdx.x * BR_WARP_SITES + warp;
   if (sid >= a.NS) return;
+  if constexpr (G) a = br_sites_chunk<T>(a);
+  if constexpr (G) w.V += (size_t)blockIdx.y * a.CHUNK;
   T* hist = reinterpret_cast<T*>(sh_raw) + (size_t)warp * (w.walk_max + 1);
   auto attempt = [&](int i, T reg, T corr, int lenf, int32_t* erow) {
     return walk_attempt<T>(a, w, mode, c, lane, hist, i, reg, corr, lenf,
@@ -249,7 +251,7 @@ __global__ void __launch_bounds__(BR_SITE_THREADS)
 
 template <class T, class P>
 static int walk_sites_launch(
-    const void* codes, P probe, const void* kmers,
+    int NC, const void* codes, P probe, const void* kmers,
     const void* V, const void* s_pos, const void* n_sites,
     const void* rstart, const void* rlen, int CHUNK, int R, int k, int c,
     int NS, int mode, int walk_max, int EW, void* succ, void* s_cap,
@@ -261,31 +263,32 @@ static int walk_sites_launch(
   w.V = (const uint8_t*)V;
   w.walk_max = walk_max;
   const size_t smem = (size_t)BR_WARP_SITES * (walk_max + 1) * sizeof(T);
+  auto kern = NC > 1 ? &walk_sites_kernel<T, P, true>
+                     : &walk_sites_kernel<T, P, false>;
   // above 48 KB of dynamic shared memory a kernel has to ask for it
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
+  static size_t granted[2] = {48 * 1024, 48 * 1024};
+  if (smem > granted[NC > 1]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        walk_sites_kernel<T, P>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    granted = smem;
+    granted[NC > 1] = smem;
   }
-  walk_sites_kernel<T, P><<<br_warp_site_blocks(NS, BR_WARP_SITES),
-                            BR_SITE_THREADS, smem, (cudaStream_t)stream>>>(
-      a, w, mode, c);
+  kern<<<br_warp_site_grid(NS, BR_WARP_SITES, NC), BR_SITE_THREADS, smem,
+         (cudaStream_t)stream>>>(a, w, mode, c);
   return (int)cudaGetLastError();
 }
 
 #define WALK_ARGS                                                         \
-  const void *codes, const void *table, const void *kmers, const void *V, \
-      const void *s_pos, const void *n_sites, const void *rstart,         \
-      const void *rlen, int CHUNK, int R, int k, int c, int NS, int mode, \
+  int NC, const void *codes, const void *table, const void *kmers,      \
+      const void *V, const void *s_pos, const void *n_sites,              \
+      const void *rstart, const void *rlen, int CHUNK, int R, int k,      \
+      int c, int NS, int mode,                                            \
       int walk_max, int EW, void *succ, void *s_cap, void *rec_p,         \
       void *rec_c, void *rec_s, void *rec_e
 #define WALK_LAUNCH(T, probe)                                             \
-  walk_sites_launch<T>(codes, probe, kmers, V, s_pos, n_sites, rstart,    \
-                       rlen, CHUNK, R, k, c, NS, mode, walk_max, EW, succ,\
-                       s_cap, rec_p, rec_c, rec_s, rec_e, stream)
+  walk_sites_launch<T>(NC, codes, probe, kmers, V, s_pos, n_sites,        \
+                       rstart, rlen, CHUNK, R, k, c, NS, mode, walk_max,  \
+                       EW, succ, s_cap, rec_p, rec_c, rec_s, rec_e,       \
+                       stream)
 
 BR_SITE_ENTRIES(br_walk_sites, WALK_ARGS, WALK_LAUNCH)

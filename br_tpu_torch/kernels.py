@@ -21,6 +21,12 @@ named by a hash of their source, headers and flags, so an edited source
 is rebuilt.  Under BR_BOUNDS_CHECK=1 the libraries are the checked build
 (``CHECKED_FLAGS``), named apart.
 
+The chain's kernels (``CHUNKED``: K1-K7) take a group of NC chunks of
+one geometry in one launch: their entry points' first argument is NC,
+and their wrappers take a chunk's arrays with a leading axis of NC
+chunks, or without it for one chunk (NC = 1).  K11's entry points take a
+flat length, a whole group's codes.
+
 ``LAUNCHES`` counts, per kernel name, the device launches its wrapper
 made; a wrapper adds them right after its entry point launched and
 nowhere else (two for ``chain_splice``, whose entry point launches a walk
@@ -46,22 +52,23 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: kernel name -> (source file, C entry point, argtypes letters:
-#: p = pointer/stream (c_void_p), i = int (c_int), l = c_longlong).
+#: p = pointer/stream (c_void_p), i = int (c_int), l = c_longlong).  A
+#: chain kernel's first letter is its NC.
 KERNELS = {
-    "dense_probe": ("dense_probe.cu", "br_dense_probe", "pppp" + "iiii"
-                    + "ppppppp" + "pp" + "p"),
-    "one_sites": ("one_sites.cu", "br_one_sites", "pppppppiiiii" + "pppppp"
-                  + "p"),
+    "dense_probe": ("dense_probe.cu", "br_dense_probe", "i" + "pppp"
+                    + "iiii" + "ppppppp" + "pp" + "p"),
+    "one_sites": ("one_sites.cu", "br_one_sites", "i" + "pppppppiiiii"
+                  + "pppppp" + "p"),
     "chain_splice": ("chain_splice.cu", "br_chain_splice",
-                     "ppp" + "pppp" + "pppp" + "p" + "iiii"
+                     "i" + "ppp" + "pppp" + "pppp" + "p" + "iiii"
                      + "pp" + "ppppp" + "p"),
     "reverse_slots": ("reverse_slots.cu", "br_reverse_slots",
-                      "pppp" + "ii" + "p"),
-    "two_sites": ("two_sites.cu", "br_two_sites", "pppppppiiiii" + "pppppp"
-                  + "p"),
-    "walk_sites": ("walk_sites.cu", "br_walk_sites", "pppppppp"
+                      "i" + "pppp" + "ii" + "p"),
+    "two_sites": ("two_sites.cu", "br_two_sites", "i" + "pppppppiiiii"
+                  + "pppppp" + "p"),
+    "walk_sites": ("walk_sites.cu", "br_walk_sites", "i" + "pppppppp"
                    + "iiiiiiii" + "pppppp" + "p"),
-    "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "ppppppp"
+    "greedy_sites": ("greedy_sites.cu", "br_greedy_sites", "i" + "ppppppp"
                      + "iiiiii" + "pppppp" + "p"),
     "solid_count": ("solid_build.cu", "br_solid_count", "plpilill" + "ii"
                     + "p" + "p"),
@@ -92,6 +99,12 @@ KERNELS.update({f"{n}_h": (KERNELS[n][0], KERNELS[n][1] + "_h",
 
 #: device kernels an entry point launches per call, where more than one.
 PER_CALL = {"chain_splice": 2}
+
+#: the chain's kernels, which take a group of NC chunks (first argument)
+CHUNKED = ("dense_probe", "one_sites", "two_sites", "walk_sites",
+           "greedy_sites", "chain_splice", "reverse_slots")
+#: the most chunks of a group (a launch's grid.y)
+MAX_NC = 65535
 
 #: device launches per kernel since the last ``reset_launches``.
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -297,18 +310,73 @@ def on_cuda(t) -> bool:
                      "cuda, or on the cpu when asked")
 
 
-def check(t, name: str, dtype, device, length: int | None = None) -> None:
-    """Raise unless ``t`` is a contiguous 1-D tensor of ``dtype`` on
-    ``device`` (and ``length`` long, when given)."""
+def check(t, name: str, dtype, device, length: int | None = None,
+          lead: tuple = ()) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` on
+    ``device`` of shape ``lead + (n,)``, n ``length`` where given: a 1-D
+    tensor by default, a chunk's row of each of a group's chunks with
+    ``lead = (NC,)``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D tensor")
-    if length is not None and t.shape[0] != length:
-        raise ValueError(f"{name} has length {t.shape[0]}, expected "
+    if (t.dim() != len(lead) + 1 or tuple(t.shape[:-1]) != tuple(lead)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous tensor of shape "
+                         f"{tuple(lead)} + (n,), got {tuple(t.shape)}")
+    if length is not None and t.shape[-1] != length:
+        raise ValueError(f"{name} has length {t.shape[-1]}, expected "
                          f"{length}")
+
+
+def group_lead(codes) -> tuple:
+    """The leading axes of a chain kernel's arguments, from its codes:
+    () for one chunk ((CHUNK,) codes), (NC,) for a group ((NC, CHUNK))."""
+    if codes.dim() == 1:
+        return ()
+    if codes.dim() == 2 and 1 <= codes.shape[0] <= MAX_NC:
+        return (codes.shape[0],)
+    raise ValueError(f"codes of shape {tuple(codes.shape)}: one chunk "
+                     f"(CHUNK,) or a group of 1..{MAX_NC} chunks "
+                     "(NC, CHUNK)")
+
+
+def group_nc(lead: tuple) -> int:
+    """A chain kernel's NC argument for arguments of leading axes
+    ``lead``."""
+    return lead[0] if lead else 1
+
+
+def _like(t: tuple, items):
+    """A tuple of ``t``'s type (a NamedTuple's too) holding ``items``."""
+    items = tuple(items)
+    return t._make(items) if hasattr(t, "_make") else items
+
+
+def chunk_of(x, i: int):
+    """Chunk i of a group's tensor, or of every tensor of a tuple."""
+    if isinstance(x, tuple):
+        return _like(x, (chunk_of(f, i) for f in x))
+    return x[i]
+
+
+def stack_chunks(outs: list):
+    """Chunks' results (tensors, or tuples of them) as a group's:
+    stacked along a new leading axis."""
+    if isinstance(outs[0], tuple):
+        return _like(outs[0], (stack_chunks(list(f)) for f in zip(*outs)))
+    return torch.stack(outs)
+
+
+def each_chunk(plain, before: tuple, chunked: tuple, after: tuple = ()):
+    """A plain version over a group: ``plain(*before, *chunk i of each of
+    chunked, *after)`` for every chunk, stacked (``stack_chunks``); for
+    one chunk (its codes, ``chunked[0]``, 1-D) the one call."""
+    lead = group_lead(chunked[0])
+    if not lead:
+        return plain(*before, *chunked, *after)
+    return stack_chunks([plain(*before, *(chunk_of(x, i) for x in chunked),
+                               *after) for i in range(lead[0])])
 
 
 def stream_of(device) -> int:

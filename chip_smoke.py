@@ -46,7 +46,19 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    peak device memory (with --baseline, the other tree's K8 built and
    timed beside it, and K8a and the build at each a whose counters take
    one partition: k8_sweep); then K8's build against its plain build at
-   every a of ABUNDANCES;
+   every a of ABUNDANCES; later in the run (after phase 5's sweep) the
+   chunk-batched chain's kernels on the corpus's first three chunks as
+   one group, each launched once (group_checks: K11a, K1, K2, K5, K6 in
+   both modes, K7, K3 on the one and the graph records, K4, K11b), held
+   exactly against their plain versions on every chunk and timed against
+   the group's bound, then each on a group of the first batch's 26
+   chunks, and on the main path's first wide group (2^18, walk_max
+   2040), held exactly against the same kernel launched once a chunk
+   over them and timed beside those launches, both queued behind a
+   spin, with the group's bound and, beside K11, the launch floor
+   (group_checks without plain; at k = 17 and 21 the same on three 2^15
+   chunks against the plain versions and on the path's first group of
+   each profile against one-chunk launches, path_groups);
 5. the main path: the default chain (no -c: one, two, graph, greedy,
    gap-size), forward and reversed, over the whole corpus through the
    CLI's entry points (build_set, whose K8 count is count_s, with K8's
@@ -56,8 +68,16 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    before; the passes' cap counters by reason and strategy; the host
    engine's seconds (host_oracle_s: the native engine on the reads the
    device did not finish, with its set copied at first need), its name and
-   threads; fails if a kernel was not launched or more than 5 % of the
-   reads went to the host;
+   threads; fails if a kernel was not launched, if a chain kernel's
+   launches are not those of the groups the path dispatched (a group of
+   up to NC_MAX chunks makes each of a chunk's launches once,
+   check_launches) or more than 5 % of the reads went to the host; then
+   the NC sweep (nc_sweep): the same correction once at NC_MAX = 1, 4,
+   16 and 64, each corrector warmed up first, byte-equal to phase 5
+   with its last_stats, with correct_s split, the launches a kernel and
+   the peak device memory (projected to the CLI's default
+   record_buffer), and the fastest NC_MAX under 8 GB (the busy share at NC_MAX = 1 and at the
+   default is measured last, after phase 13);
 6. the wide profile's kernel checks, on the main path's first retry
    chunk (2^18 positions, 32 slots, walk_max 2040): K1, K2 and K5 (and
    their baselines and chain floors), K6 in both modes and K3 on the
@@ -88,7 +108,10 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    and 15 on the first chunk) on its first chunk and its first retry
    chunk, each held exactly against its plain version (run once) and
    timed as in 4 (with --baseline, the first chunk's beside the other
-   tree's 64-bit instantiations); its output check, as in 8, at k = 17;
+   tree's 64-bit instantiations), and the 64-bit chain on a group of
+   three chunks of 2^15 positions of its reads as in 4's group checks,
+   and on the path's first group and first wide group against one-chunk
+   launches; its output check, as in 8, at k = 17;
 11. large k (large_k_path), two sets through `large-kmer -k 21` and the
    CLI's entry points (a HashSet, its sorted table padded to 2^21
    entries on the card with its bucket index, device_codec.SortedTable;
@@ -114,7 +137,9 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    and torch.searchsorted, each timed as in 4 (with --baseline beside the
    other tree's, and K9 also through bucket
    indexes of b - 2 to b + 2 bits), with the index's statistics, the
-   probes' dependent loads and the corrector's index build's time; then
+   probes' dependent loads and the corrector's index build's time, and
+   the `_h` chain on a group of three 2^15 chunks and on the path's
+   first groups as at k = 17; then
    K9 and
    dense_probe_h at k = 31 on a sorted table
    of 2^27 entries (1 GiB, past the L2: the genome's k-mers and random
@@ -156,13 +181,22 @@ In order, each phase ending the run with a nonzero exit code if it fails:
    the stage seconds and the device's busy share (the union of the
    kernel events over the range) inside the correct and the build-set
    range; then `--backend native -t 0`, all reads on the host engine on
-   every core, its correct seconds the host baseline.
+   every core, its correct seconds the host baseline.  Last, phase 5's
+   correction at NC_MAX = 1 and at the default once more under
+   torch.profiler (nc_busy): the device's busy share of its correct
+   range (a profiled run slows every later launch of the process, so
+   it comes last).
 
 The line before the last is the kernel summary {"kernels": [...]}: a
 kernel's ms is the time of one call of its entry point, and its launches
 count device kernels (two a call for chain_splice, a walk kernel and a
 copy kernel); K11's entries at 2^20 and 2^18 split the main path's
-launches by chunk size (one a wide sibling's chunk at 2^18).  The last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
+launches by chunk size (one a wide sibling's group at 2^18); a
+``<kernel>[group of 3...]`` entry is its group check, with a full
+group's numbers (group_ms, group_nc1_ms, group_bound_ms) beside: at
+k = 13 the first batch's 26 chunks, at k = 17 and 21 the path's first
+group.  The
+last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 br_tpu_torch package beside it, the script exits nonzero and prints no
 result.
 """
@@ -395,6 +429,34 @@ def chain_visits(site_out, s_pos, n_sites, rs, rl, CHUNK):
     return visited, hi - lo, cum[hi] - cum[lo]
 
 
+class OneChunk:
+    """A chain kernel's library from before the chunk-batched chain: its
+    entry points take this tree's arguments less the first, NC, which
+    must be 1 (bound here without it)."""
+
+    def __init__(self, lib, names):
+        from br_tpu_torch import kernels
+
+        self._lib = lib
+        self._entries = {}
+        for n in names:
+            _src, entry, sig = kernels.KERNELS[n]
+            fn = getattr(lib, entry)
+            fn.argtypes = [kernels._CTYPES[ch] for ch in sig[1:]]
+            self._entries[entry] = fn
+
+    def __getattr__(self, attr):
+        fn = self._entries.get(attr)
+        if fn is None:
+            return getattr(self._lib, attr)
+
+        def call(nc, *args):
+            check(nc == 1, "a kernel from before the chunk axis takes one "
+                           f"chunk, not {nc}")
+            return fn(*args)
+        return call
+
+
 def load_baseline(csrc):
     """K1, K2, K5, K6, K7, K3, K4 and K9 (every instantiation: 32-bit,
     64-bit and sorted-table) as built from another tree's ``csrc`` (the
@@ -403,10 +465,13 @@ def load_baseline(csrc):
     tree's wrappers; and K8 (``solid_build.cu``), where it differs, as
     ``"k8"``: {"build"}, its whole build on batches grouped by shard, k and a,
     through this tree's build_words (the other tree's K8 has this tree's
-    entry points).  Built with this tree's nvcc flags, one nvcc each, all
-    at once; their calls are not counted in kernels.LAUNCHES.  Returns
-    {kernel name: function with the arguments of the kernel's
-    wrapper}."""
+    entry points).  A chain kernel whose entry points take no group (no
+    ``int NC`` before the codes: the trees before the chunk-batched
+    chain) is called
+    with this tree's arguments less NC, on one chunk only.  Built with
+    this tree's nvcc flags, one nvcc each, all at once; their calls are
+    not counted in kernels.LAUNCHES.  Returns {kernel name: function with
+    the arguments of the kernel's wrapper}."""
     from pathlib import Path
 
     from br_tpu_torch import kernels
@@ -453,6 +518,12 @@ def load_baseline(csrc):
                                else [])
                      + ([name + "_h"] if name in kernels.HASHED else []))
         kernels.bind(lib, names)
+        src = os.path.join(csrc, kernels.KERNELS[name][0])
+        with open(src, "rb") as fh:   # an entry point's NC before codes
+            grouped = re.search(rb"int NC,\s*const void\s*\*\s*codes",
+                                fh.read()) is not None
+        if name in kernels.CHUNKED and not grouped:
+            lib = OneChunk(lib, names)
         libs[name] = lib
         regs = [ln.split(":", 1)[-1].strip() for ln in log_.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -712,6 +783,49 @@ def chain_floor(kind, table, codes, d, rs, rl, k, c, ms, walk_max=0):
     return int(old.max()), int(new.max()), longest[0], out
 
 
+def k1_bound_bytes(table, kmers, k, R, NS, hashed):
+    """K1's bytes on one chunk: the codes and the slot table in, the
+    table the probes read (the distinct bitfield words, or the index
+    offsets and entries of the bucketed probes), the k-mers, three masks
+    and the site list out; from its plain version's ``kmers``.  Also, for
+    a sorted table, the bytes of whole-table searches past the bucketed
+    ones (the first design's bound), else None."""
+    import torch
+
+    from br_tpu_torch.correct import device_codec as dc
+
+    CHUNK = kmers.shape[0]
+    cano = dc.canonical_any(kmers.long()[kmers != 0], k)
+    pr8 = None
+    if hashed:   # the index offsets and entries the probes read
+        table_bytes = bucket_stats(table, cano)["probe_bytes"]
+        # the first design's: the entries of whole-table searches
+        pr8 = 8 * search_entries(table.table, cano) - table_bytes
+    else:        # the bitfield words the probes read
+        table_bytes = 4 * int(torch.unique(cano >> 6).numel())
+    return (CHUNK + 8 * R + table_bytes + CHUNK * (1 + 1 + 1) + 4 * NS + 4
+            + R + CHUNK * kmers.element_size()), pr8
+
+
+def k3_bound_bytes(site_out, s_pos, n_sites, rs, rl, x_plain, name):
+    """K3's bytes on one chunk: the read bases it copies, the slot and
+    site tables and the visited records (12 bytes and ceil(cnt/16) emit
+    words each) in; the chunk's output codes and per-read results out.
+    Returns (bytes, visited records, listed and visited sites a read)."""
+    from br_tpu_torch.correct.layout import SLOTS
+
+    CHUNK, R, NS = x_plain.out.shape[0], rs.shape[0], s_pos.shape[0]
+    vis, listed, visits = chain_visits(site_out, s_pos, n_sites, rs, rl,
+                                       CHUNK)
+    n_rec, rec_w = record_words(site_out, vis.repeat_interleave(SLOTS))
+    check(n_rec == int(x_plain.rec_cnt.sum()),
+          f"{name}: visited records {n_rec} vs "
+          f"{int(x_plain.rec_cnt.sum())}")
+    n_eff = min(int(n_sites[0]), NS)
+    return (int(x_plain.out_len.sum()) + 9 * R + 12 * n_eff + 12 * n_rec
+            + 4 * rec_w + CHUNK + 9 * R + 32), n_rec, listed, visits
+
+
 def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
                   reps=10, plain_reps=2, baseline=None, full=True,
                   walks=None):
@@ -739,7 +853,7 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
                                       two, walk)
     from br_tpu_torch.correct.layout import (
-        BIG, CAP_ATTEMPT, SLOTS, WALK_MAX, WIDE_WALK_MAX, site_capacity)
+        BIG, CAP_ATTEMPT, WALK_MAX, WIDE_WALK_MAX, site_capacity)
 
     packed, rstart, rlen = chunk
     CHUNK, R = packed.shape[0] * 4, rstart.shape[0]
@@ -821,18 +935,9 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     # k-mers, three masks, the site list
     d_args = (table, codes, rs, rl, k, NS)
     d_plain = probe.dense_probe_plain(*d_args)
-    pin_ok = d_plain.kmers != 0
-    cano = dc.canonical_any(d_plain.kmers.long()[pin_ok], k)
-    if tkind == "hash":   # the index offsets and entries the probes read
-        table_bytes = bucket_stats(table, cano)["probe_bytes"]
-        # the first design's: the entries of whole-table searches
-        pr8_bytes = 8 * search_entries(table.table, cano) - table_bytes
-    else:                 # the bitfield words the probes read
-        table_bytes = 4 * int(torch.unique(cano >> 6).numel())
+    k1_bytes, pr8_bytes = k1_bound_bytes(table, d_plain.kmers, k, R, NS,
+                                         tkind == "hash")
     n_eff = min(int(d_plain.n_sites[0]), NS)
-    k1_bytes = (CHUNK + 8 * R + table_bytes
-                + CHUNK * (4 + 1 + 1 + 1) + 4 * NS + 4 + R)
-    k1_bytes += CHUNK * (dc.kmer_dtype(k, tkind).itemsize - 4)
     k1_name = w("dense_probe") + {"first": "", "retry": "[retry chunk]",
                                   "long": "[long-walk chunk]"}[kind]
     d = run(k1_name, lambda: probe.dense_probe(*d_args),
@@ -883,16 +988,9 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     # the read with the longest chain: logged beside it.
     def k3(name, site_out):
         x_args = (codes, rs, rl, d.s_pos, d.n_sites, site_out, d.cap_read)
-        vis, listed, visits = chain_visits(site_out, d.s_pos, d.n_sites, rs,
-                                           rl, CHUNK)
-        n_rec, rec_w = record_words(site_out,
-                                    vis.repeat_interleave(SLOTS))
         x_plain = splice.chain_splice_plain(*x_args)
-        check(n_rec == int(x_plain.rec_cnt.sum()),
-              f"{name}: visited records {n_rec} vs "
-              f"{int(x_plain.rec_cnt.sum())}")
-        nbytes = (int(x_plain.out_len.sum()) + 9 * R + 12 * n_eff
-                  + 12 * n_rec + 4 * rec_w + CHUNK + 9 * R + 32)
+        nbytes, n_rec, listed, visits = k3_bound_bytes(
+            site_out, d.s_pos, d.n_sites, rs, rl, x_plain, name)
         run(name, lambda: splice.chain_splice(*x_args),
             lambda: splice.chain_splice_plain(*x_args), nbytes, 20,
             kb=based("chain_splice", *x_args))
@@ -985,6 +1083,194 @@ def kernel_checks(table, chunk, k, c, ms, device, sync, kind="first",
     return res
 
 
+def to_group(arrays, device):
+    """A group's host arrays (``_group_arrays``) on the card: the packed
+    codes, and the slot tables."""
+    import torch
+
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
+def group_checks(table, arrays, k, c, ms, device, sync, label, checks,
+                 plain=True, into=None, walk_max=None, reps=10):
+    """Every kernel of the chain on one group of chunks (``arrays``, from
+    ``_group_arrays``), each launched once for the group: K11a on its
+    packed codes, K1, K2, K5, K6 in both modes (at ``walk_max``, by
+    default the default profile's), K7, K3 on the one and the graph
+    records, K4 on K3's output, K11b.
+
+    With ``plain``, each is held exactly against its plain version on
+    every chunk (``kernels.each_chunk``; a site kernel through
+    sites.defined), timed queued behind a spin (ms) and with the host
+    launching (call_ms), against the group's bound (its chunks' bounds
+    summed), its plain version's one call beside it: the entry
+    ``<kernel>[label]`` of ``checks``.  Without, each is held exactly
+    against the same kernel launched once a chunk over the same chunks
+    (the NC = 1 chain's launches, which kernel_checks holds against the
+    plain versions), and both are timed queued, with the group's bound
+    and, for K11, the launch floor: group_ms, group_nc1_ms,
+    group_bound_ms, group_chunks (and floor_ms) go into the entry
+    ``<kernel>[into]`` of ``checks`` where there is one.  Every result is
+    logged under ``label``."""
+    import torch
+
+    from br_tpu_torch import kernels
+    from br_tpu_torch.correct import device_codec as dc
+    from br_tpu_torch.correct import (greedy, probe, reverse, sites, splice,
+                                      two, walk)
+    from br_tpu_torch.correct.layout import WALK_MAX, site_capacity
+
+    of = kernels.chunk_of
+    packed, rs, rl = to_group(arrays, device)
+    NC, R = rs.shape
+    CHUNK = packed.shape[1] * 4
+    NS = site_capacity(CHUNK)
+    tkind = dc.table_kind(table)
+    walk_max = WALK_MAX if walk_max is None else walk_max
+    floor = None if plain else cuda_ms(lambda: torch.cuda._sleep(0), 20,
+                                       sync, queued=True)
+    tag = f"[{label}]"
+
+    def w(name):
+        return kernels.variant(name, k, tkind)
+
+    def fields(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def step(name, fn, plain_fn, before, chunked, after, nbytes,
+             view=fields):
+        """Kernel ``fn(*before, *chunked, *after)`` on the group, checked
+        and timed as the mode says; its bytes ``nbytes(output)``."""
+        def group():
+            return fn(*before, *chunked, *after)
+
+        def one(i):
+            return fn(*before, *(of(x, i) for x in chunked), *after)
+
+        if plain:
+            sync()
+            t0 = time.perf_counter()
+            want = kernels.each_chunk(plain_fn, before, chunked, after)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = group()
+            err = max_abs_err(view(got), view(want))
+            check(err == 0, f"{name}{tag}: the group's kernel and the "
+                            f"plain version differ (max abs err {err})")
+        else:
+            got = group()
+            for i in range(NC):
+                err = max_abs_err(view(of(got, i)), view(one(i)))
+                check(err == 0, f"{name}{tag}: the group's chunk {i} "
+                                f"differs from its own launch (max abs "
+                                f"err {err})")
+        bound = nbytes(got) / HBM_BYTES_PER_S * 1e3
+        if plain:
+            t = {"ms": cuda_ms(group, reps, sync, queued=True),
+                 "call_ms": cuda_ms(group, reps, sync, warm=False),
+                 "plain_ms": plain_ms, "bound_ms": bound,
+                 "max_abs_err": err, "chunks": NC}
+            checks[name + tag] = t
+            ratios = {"ms_over_bound": t["ms"] / bound}
+        else:
+            t = {"group_ms": cuda_ms(group, reps, sync, queued=True),
+                 "group_nc1_ms": cuda_ms(
+                     lambda: [one(i) for i in range(NC)], reps, sync,
+                     queued=True),
+                 "group_bound_ms": bound, "group_chunks": NC}
+            if name.startswith(("unpack_codes", "pack_codes")):
+                t["floor_ms"] = floor
+            if into is not None and f"{name}[{into}]" in checks:
+                checks[f"{name}[{into}]"].update(t)
+            ratios = {"nc1_over_group": t["group_nc1_ms"] / t["group_ms"],
+                      "group_over_bound": t["group_ms"] / bound}
+        log(f"kernel {name}{tag}: " + json.dumps({**t, **ratios}))
+        return got
+
+    codes = step("unpack_codes", dc.unpack_codes, dc.unpack_codes_plain,
+                 (), (packed,), (CHUNK,),
+                 lambda _o: NC * (CHUNK // 4 + CHUNK))
+    d = step(w("dense_probe"), probe.dense_probe, probe.dense_probe_plain,
+             (table,), (codes, rs, rl), (k, NS),
+             lambda dp: sum(k1_bound_bytes(table, dp.kmers[i], k, R, NS,
+                                           tkind == "hash")[0]
+                            for i in range(NC)))
+
+    def site_bytes(window):
+        return lambda out: sum(sites_bytes(
+            NS, min(int(d.n_sites[i, 0]), NS), R, CHUNK, window,
+            of(out, i)) for i in range(NC))
+
+    s_args = (codes, d.kmers, d.s_pos, d.n_sites, rs, rl)
+    so = {}
+    for st, mod, fn, extra, window in (
+            ("one", sites, "one_sites", (c,), c + 3 + k),
+            ("two", two, "two_sites", (c,), c + 6 + k),
+            ("greedy", greedy, "greedy_sites", (ms, c), ms + c + k)):
+        so[st] = step(w(fn), getattr(mod, fn), getattr(mod, fn + "_plain"),
+                      (table,), s_args, (k, *extra), site_bytes(window),
+                      view=sites.defined)
+    w_args = (codes, d.kmers, d.V, d.s_pos, d.n_sites, rs, rl)
+    for st in ("graph", "gap-size"):
+        so[st] = step(w("walk_sites") + ("" if st == "graph" else f"[{st}]"),
+                      walk.walk_sites, walk.walk_sites_plain, (table,),
+                      w_args, (k, c, st, walk_max), site_bytes(3 * k + c),
+                      view=sites.defined)
+    x = None
+    for st in ("one", "graph"):
+        xo = step("chain_splice" + ("" if st == "one" else
+                                    "[graph records]"),
+                  splice.chain_splice, splice.chain_splice_plain, (),
+                  (codes, rs, rl, d.s_pos, d.n_sites, so[st], d.cap_read),
+                  (), lambda xg, st=st: sum(k3_bound_bytes(
+                      of(so[st], i), d.s_pos[i], d.n_sites[i], rs[i], rl[i],
+                      of(xg, i), st)[0] for i in range(NC)))
+        x = xo if x is None else x
+    out = step("reverse_slots", reverse.reverse_slots,
+               reverse.reverse_slots_plain, (), (x.out, rs, x.out_len), (),
+               lambda _o: NC * (2 * CHUNK + 8 * R))
+    step("pack_codes", dc.pack_codes, dc.pack_codes_plain, (), (out,), (),
+         lambda _o: NC * (CHUNK // 4 + CHUNK))
+    log(f"group {label}: {NC} chunks of {CHUNK}, {int((rl > 0).sum())} "
+        f"reads, {int(rl.sum())} bases, {int(d.n_sites.sum())} sites"
+        + ("" if plain else f"; launch floor {floor} ms"))
+
+
+def small_group(corrector, seqs):
+    """The host arrays of a group of three chunks of 2^15 positions and
+    32 slots, planned as ``corrector`` plans (its first reads of
+    ``seqs``): the group checks at k = 17 and 21, whose plain walks run
+    long on full chunks."""
+    from br_tpu_torch.correct.engine3 import Torch3Corrector
+
+    planner = Torch3Corrector(corrector.valid_kmer, corrector.corrections,
+                              corrector.c, corrector.ms, chunk=1 << 15,
+                              nreads=32, device=corrector.device,
+                              table=corrector.table)
+    return planner._group_arrays(seqs, planner._plan(seqs, set(),
+                                                     set())[:3])
+
+
+def path_groups(table, inst, k, device, sync, checks,
+                profiles=("default", "wide")):
+    """A path's first group of each of ``profiles`` that held a read
+    (instrument's first_group: the shapes the path gave its kernels, the
+    default profile's up to NC_MAX chunks of 2^20, the wide sibling's of
+    2^18 at walk_max 2040), each kernel held against one-chunk launches
+    over its chunks (group_checks without plain); the default group's
+    times go into the entries of the k's group of three."""
+    from br_tpu_torch.correct.layout import WALK_MAX, WIDE_WALK_MAX
+
+    for prof in profiles:
+        arrays = inst["first_group"].get(prof)
+        check(arrays is not None, f"k={k}: the path ran no {prof} group")
+        group_checks(table, arrays, k, C, MS, device, sync,
+                     f"first {prof} group, k={k}", checks, plain=False,
+                     into=GROUP_LABEL[k] if prof == "default" else None,
+                     walk_max=WALK_MAX if prof == "default"
+                     else WIDE_WALK_MAX)
+
+
 def torch_cases():
     """tests/torch_cases.py, the seeded generators of the port's tests
     (it imports numpy and br_tpu_torch; JAX only inside the functions
@@ -1022,17 +1308,23 @@ def long_walk_chunk(device):
 def instrument(corrector):
     """Keep, for the corrector and its wide retry sibling, every pass's
     aux counters and CUDA events around it (no synchronisation), by
-    profile and strategy, the host seconds of the oracle, and the retry
-    sibling's first chunk as packed; the passes, the oracle and the
-    packing themselves are unchanged."""
+    profile and strategy, the host seconds of the oracle, the retry
+    sibling's first chunk as packed, each profile's first group that
+    holds a read as packed (``_group_arrays``), and the groups and chunks
+    each profile dispatched; the passes, the oracle, the packing and the
+    dispatch themselves are unchanged.  Returns {"kept", "oracle_s",
+    "retry", "first_group": {profile: arrays}, "groups": {profile:
+    [groups, chunks]}}."""
     import torch
 
-    kept, oracle_s, retry = [], [], []
+    kept, oracle_s, retry, first_group = [], [], [], {}
+    groups = {"default": [0, 0], "wide": [0, 0]}
     wide = corrector._get_wide()
 
-    def first_chunk(seqs, idxs, starts, fn=wide._chunk_arrays):
-        out = fn(seqs, idxs, starts)
-        retry.append(None if retry else out)
+    def first_chunk(seqs, idxs, starts, out=None, fn=wide._chunk_arrays):
+        out = fn(seqs, idxs, starts, out)
+        if not retry:
+            retry.append(tuple(np.array(a) for a in out))
         return out
     wide._chunk_arrays = first_chunk
     for cor, prof in ((corrector, "default"), (wide, "wide")):
@@ -1052,34 +1344,87 @@ def instrument(corrector):
             oracle_s.append(time.perf_counter() - t0)
             return out
         cor._oracle_correct_many = timed
-    return kept, oracle_s, retry
+
+        def dispatch(seqs, group, *a, fn=cor._dispatch_group, n=groups[prof],
+                     **kw):
+            n[0] += 1
+            n[1] += len(group)
+            return fn(seqs, group, *a, **kw)
+        cor._dispatch_group = dispatch
+
+        def packed(seqs, group, fn=cor._group_arrays, prof=prof):
+            out = fn(seqs, group)
+            if prof not in first_group and out[2].any():
+                first_group[prof] = tuple(np.array(a) for a in out)
+            return out
+        cor._group_arrays = packed
+    return {"kept": kept, "oracle_s": oracle_s, "retry": retry,
+            "first_group": first_group, "groups": groups}
+
+
+def expected_launches(chain, groups, two_side=False, sfx=""):
+    """The chain kernels' launches of a path that ran ``groups`` groups
+    (both profiles' summed) of the strategies ``chain``: a group makes
+    each of a chunk's launches once (K11a, K11b; K1, the strategy's site
+    kernel and K3's two kernels a pass, every pass twice and K4 twice
+    without two_side)."""
+    d = 1 if two_side else 2
+    want = dict.fromkeys(("unpack_codes", "pack_codes"), groups)
+    want["dense_probe" + sfx] = d * len(chain) * groups
+    want["chain_splice"] = 2 * d * len(chain) * groups
+    want["reverse_slots"] = 0 if two_side else 2 * groups
+    for st in chain:
+        name = {"one": "one_sites", "two": "two_sites", "graph":
+                "walk_sites", "gap-size": "walk_sites",
+                "greedy": "greedy_sites"}[st] + sfx
+        want[name] = want.get(name, 0) + d * groups
+    return want
+
+
+def check_launches(label, launches, inst, chain, two_side=False, sfx=""):
+    """Fail unless the path's chain kernels launched exactly as its
+    groups say (``expected_launches``); log the groups."""
+    g = inst["groups"]
+    want = expected_launches(chain, g["default"][0] + g["wide"][0],
+                             two_side, sfx)
+    got = {n: launches[n] for n in want}
+    log(f"{label} groups: " + json.dumps({
+        "groups_chunks": g, "launches": got}))
+    check(got == want, f"{label}: launches {got}, expected {want} from "
+                       f"the groups {g}")
 
 
 def cap_reasons(kept):
-    """Per profile and strategy: passes, their seconds on the device (CUDA
-    events around each pass: K1, the site kernel, K3 and the pass's small
-    PyTorch ops), capped sites by reason (aux 1-3), passes whose chunk
-    had more sites than NS (aux[7] > aux[0]) and the sites they dropped,
-    capped reads (aux 6)."""
+    """Per profile and strategy: passes (a group's pass over its chunks
+    is one) and chunk passes, their seconds on the device (CUDA events
+    around each pass: K1, the site kernel, K3 and the pass's small
+    PyTorch ops), capped sites by reason (aux 1-3), chunk passes whose
+    chunk had more sites than NS (aux[7] > aux[0]) and the sites they
+    dropped, capped reads (aux 6)."""
     import torch
 
     out = {}
     if not kept:
         return out
-    aux = torch.stack([a for _t, a, _e in kept]).long().cpu().numpy()
-    for (tag, _a, ev), row in zip(kept, aux):
+    aux = torch.cat([a.reshape(-1, 8) for _t, a, _e in kept]).long().cpu()
+    rows = iter(aux.numpy())
+    for tag, a, ev in kept:
         r = out.setdefault(f"{tag[0]}/{tag[1]}", {
-            "passes": 0, "device_s": 0.0, "cap_overflow": 0,
-            "cap_attempt": 0, "cap_rounds": 0, "ns_overflow_passes": 0,
-            "ns_dropped_sites": 0, "capped_reads": 0})
+            "passes": 0, "chunk_passes": 0, "device_s": 0.0,
+            "cap_overflow": 0, "cap_attempt": 0, "cap_rounds": 0,
+            "ns_overflow_passes": 0, "ns_dropped_sites": 0,
+            "capped_reads": 0})
         r["passes"] += 1
         r["device_s"] += ev[0].elapsed_time(ev[1]) / 1e3
-        r["cap_overflow"] += int(row[1])
-        r["cap_attempt"] += int(row[2])
-        r["cap_rounds"] += int(row[3])
-        r["ns_overflow_passes"] += int(row[7] > row[0])
-        r["ns_dropped_sites"] += int(row[7] - row[0])
-        r["capped_reads"] += int(row[6])
+        for _ in range(a.reshape(-1, 8).shape[0]):
+            row = next(rows)
+            r["chunk_passes"] += 1
+            r["cap_overflow"] += int(row[1])
+            r["cap_attempt"] += int(row[2])
+            r["cap_rounds"] += int(row[3])
+            r["ns_overflow_passes"] += int(row[7] > row[0])
+            r["ns_dropped_sites"] += int(row[7] - row[0])
+            r["capped_reads"] += int(row[6])
     return out
 
 
@@ -1476,7 +1821,9 @@ NEED_MESH = NEED13 + ("merge_counts",)
 #: its check has them: an earlier definition's bound (K9, dense_probe_h;
 #: K8), and K8's whole build beside its function bound
 ENTRY_EXTRAS = ("pr8_bound_ms", "old_bound_ms", "build_ms",
-                "build_bound_ms", "baseline_ms", "baseline_build_ms")
+                "build_bound_ms", "baseline_ms", "baseline_build_ms",
+                "chunks", "group_ms", "group_nc1_ms", "group_bound_ms",
+                "group_chunks", "floor_ms")
 
 
 NEED_LARGE = ("dense_probe_h", "one_sites_h", "two_sites_h", "walk_sites_h",
@@ -1755,7 +2102,7 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
             dc.sorted_table = build_index
         sync()
         inst["make_s"] = time.perf_counter() - t0
-        inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+        inst.update(instrument(cor))
         return cor
 
     torch.cuda.reset_peak_memory_stats()
@@ -1768,6 +2115,7 @@ def large_k_run(label, workdir, fa, src, fmt, seqs, n_bases, device, sync,
                 launches, inst, n_bases, card, NEED_LARGE,
                 max_fallback=max_fallback,
                 set_times={"index_build_ms": inst["index_build_ms"]})
+    check_launches(label, launches, inst, args.corrections, sfx="_h")
     log(f"{label} set and device memory: " + json.dumps({
         "input": f"-i {os.path.basename(src)} -f {fmt}",
         "kmers": len(solid), "table_entries": table.table.numel(),
@@ -1842,6 +2190,9 @@ def large_k_path(workdir, fa, seqs, n_bases, device, sync, card,
     checks.update(hash_probe_check(
         f"hash_probe[k={k},path table]", table, dc.rolling_kmers(codes, k),
         k, sync, baseline=baseline, index_ms=inst["index_build_ms"]))
+    group_checks(table, small_group(corrector, seqs), k, C, MS, device,
+                 sync, GROUP_LABEL[k], checks)
+    path_groups(table, inst, k, device, sync, checks)
     del corrector, table
     torch.cuda.empty_cache()
     checks.update(big_table_checks(first, device, sync, baseline))
@@ -2127,8 +2478,7 @@ def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
     cor = runtime.make_corrector(solid, args.corrections, args.confirm,
                                  args.max_search, device=device)
     cor.mesh = mesh
-    inst = {}
-    inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+    inst = instrument(cor)
     t0 = time.perf_counter()
     n = runtime.run_correction([fa], [out], solid, args.corrections,
                                args.confirm, args.max_search, args.two_side,
@@ -2141,6 +2491,8 @@ def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
     check(n == N_READS, f"mesh path wrote {n} records, expected {N_READS}")
     path_report(f"mesh path ({D} shards)", args, solid, cor, n, count_s,
                 correct_s, launches, inst, n_bases, card, NEED_MESH)
+    check_launches(f"mesh path ({D} shards)", launches, inst,
+                   args.corrections)
     with open(out, "rb") as fh, open(out_main, "rb") as fm:
         want = fm.read()
         check(fh.read() == want, "mesh path: the output differs from "
@@ -2169,7 +2521,8 @@ def mesh_phase(workdir, fa, seqs, n_bases, device, sync, card, main,
         cor = runtime.make_corrector(hset, args.corrections, args.confirm,
                                      args.max_search, device=device)
         cor.mesh = m
-        kept, oracle_s, _retry = instrument(cor)
+        ins = instrument(cor)
+        kept, oracle_s = ins["kept"], ins["oracle_s"]
         o = os.path.join(workdir, f"out_mesh21_{tag}.fa")
         t0 = time.perf_counter()
         runtime.run_correction([fa500], [o], hset, args.corrections,
@@ -2341,6 +2694,138 @@ def cli_phase(workdir, fa, want, launches):
         "cpu_count": os.cpu_count(), "equal_to_phase5": True}))
 
 
+#: NC_MAX values of the sweep (phase 5), each timed once, in this order;
+#: the peak device memory a default NC_MAX may reach at the CLI's default
+#: record_buffer
+NC_SWEEP = (1, 4, 16, 64)
+NC_MEMORY_LIMIT = 8 << 30
+#: the label of each k's group checks (group_checks)
+GROUP_LABEL = {K: "group of 3", 17: "group of 3 at 2^15, k=17",
+               K_LARGE: "group of 3 at 2^15, k=21"}
+
+
+def sweep_corrector(args, solid, nc, chunks, device):
+    """Phase 5's corrector at NC_MAX = nc, warmed up for its groups."""
+    from br_tpu_torch import runtime
+
+    cor = runtime.make_corrector(solid, args.corrections, args.confirm,
+                                 args.max_search, device=device)
+    cor.NC_MAX = nc
+    cor.warmup(args.two_side, nc=min(nc, chunks))
+    return cor
+
+
+def nc_sweep(args, solid, want, main_cor, device, sync):
+    """Phase 5's correction at each NC_MAX of NC_SWEEP (the set, corpus
+    and flags of phase 5, a corrector warmed up for its groups first):
+    byte-equal to phase 5 (``want``) with its last_stats, its launches
+    as its groups say; logged: correct_s split into the passes (device),
+    the host engine and the rest, the launches a kernel and the peak
+    device memory.  The peak at the CLI's default record_buffer (~100
+    chunks of 2^20) is projected from the per-chunk growth of the peak
+    between NC_MAX 1 and 16; the fastest NC_MAX under NC_MEMORY_LIMIT is
+    logged.  (The busy shares come from profiled runs at the end of the
+    script, nc_busy: a torch.profiler run with CUDA activity leaves
+    every later launch of the process slower.)  Returns {nc: numbers}."""
+    import torch
+
+    from br_tpu_torch import DEFAULT_RECORD_BUFFER, kernels, runtime
+
+    chunks = main_cor.last_stats["chunks"]
+    res = {}
+    for nc in NC_SWEEP:
+        cor = sweep_corrector(args, solid, nc, chunks, device)
+        inst = instrument(cor)
+        out = os.path.join(os.path.dirname(args.outputs[0]),
+                           f"out_nc{nc}.fa")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        runtime.run_correction(args.inputs, [out], solid, args.corrections,
+                               args.confirm, args.max_search, args.two_side,
+                               record_buffer=args.record_buffer,
+                               line_width=args.line_width, corrector=cor)
+        sync()
+        correct_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+        with open(out, "rb") as fh:
+            check(fh.read() == want, f"NC_MAX={nc}: the output differs "
+                                     "from phase 5's")
+        check(cor.last_stats == main_cor.last_stats,
+              f"NC_MAX={nc}: last_stats {cor.last_stats}, phase 5 "
+              f"{main_cor.last_stats}")
+        check_launches(f"NC_MAX={nc}", kernels.LAUNCHES, inst,
+                       args.corrections, args.two_side)
+        device_s = sum(r["device_s"] for r in
+                       cap_reasons(inst["kept"]).values())
+        host_s = sum(inst["oracle_s"])
+        groups = {prof: list(n) for prof, n in inst["groups"].items()}
+        res[nc] = {"correct_s": correct_s,
+                   "pass_device_s": device_s, "host_oracle_s": host_s,
+                   "rest_s": correct_s - device_s - host_s,
+                   "reads_per_s": N_READS / correct_s,
+                   "groups": groups, "launches": launches,
+                   "launches_total": sum(launches.values()),
+                   "max_memory_allocated": peak,
+                   "allocated_before": base}
+        log(f"NC sweep, NC_MAX={nc}: " + json.dumps(res[nc]))
+        del cor, inst
+    per_chunk = ((res[16]["max_memory_allocated"]
+                  - res[1]["max_memory_allocated"]) / 15)
+    full = -(-chunks * DEFAULT_RECORD_BUFFER // N_READS)
+    for nc, r in res.items():
+        r["projected_peak_at_record_buffer"] = int(
+            r["max_memory_allocated"]
+            + (min(nc, full) - min(nc, chunks)) * per_chunk)
+    fit = [nc for nc in NC_SWEEP
+           if res[nc]["projected_peak_at_record_buffer"] < NC_MEMORY_LIMIT]
+    best = min(fit, key=lambda nc: res[nc]["correct_s"])
+    log("NC sweep: " + json.dumps({
+        "chunks": chunks, "default_NC_MAX": type(main_cor).NC_MAX,
+        "chunks_at_record_buffer": full,
+        "peak_bytes_per_chunk": per_chunk,
+        "correct_s": {nc: r["correct_s"] for nc, r in res.items()},
+        "projected_peak": {nc: r["projected_peak_at_record_buffer"]
+                           for nc, r in res.items()},
+        "fastest_under_limit": best}))
+    return res
+
+
+def nc_busy(args, solid, device, sync, chunks):
+    """The device's busy share of the correct range (the union of the
+    kernel events over it, trace_summary) at NC_MAX = 1 and at the
+    default: phase 5's correction with phase 5's set once more under
+    torch.profiler.  Run last: after a profiled run every launch of the
+    process is slower."""
+    from br_tpu_torch import runtime
+    from br_tpu_torch.correct.engine3 import Torch3Corrector
+    from br_tpu_torch.profiling import TRACE_FILE, device_trace
+
+    res = {}
+    for nc in (1, Torch3Corrector.NC_MAX):
+        cor = sweep_corrector(args, solid, nc, chunks, device)
+        trace_dir = os.path.join(os.path.dirname(args.outputs[0]),
+                                 f"trace_nc{nc}")
+        with device_trace(trace_dir, cuda=True):
+            runtime.run_correction(args.inputs, [os.devnull], solid,
+                                   args.corrections, args.confirm,
+                                   args.max_search, args.two_side,
+                                   record_buffer=args.record_buffer,
+                                   line_width=args.line_width,
+                                   corrector=cor)
+            sync()
+        summary = trace_summary(os.path.join(trace_dir, TRACE_FILE))
+        res[nc] = {"busy_share_correct": summary["busy_share"]["correct"],
+                   "kernel_events": summary["kernel_events"],
+                   "port_kernel_events": summary["port_kernel_events"]}
+        log(f"NC sweep, NC_MAX={nc}, profiled: " + json.dumps(res[nc]))
+    return res
+
+
 def main_path(workdir, device, sync, card, build, base_dir=None):
     """Corpus, the k = 13 solid set on the host and by K8, kernel checks,
     the default-chain CLI path and its output check, then the `-c one`
@@ -2385,8 +2870,9 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         "count_s_host": count_host_s, "count_s_device": count_dev_s}))
     planner = runtime.make_corrector(dsolid, args.corrections, args.confirm,
                                      args.max_search, device=device)
-    idxs, starts = planner._plan(seqs, set(), set())[0]
-    first = planner._chunk_arrays(seqs, idxs, starts)
+    plans = planner._plan(seqs, set(), set())
+    first = planner._chunk_arrays(seqs, *plans[0])
+    group3 = planner._group_arrays(seqs, plans[:3])
 
     baseline = load_baseline(base_dir) if base_dir else None
     checks = kernel_checks(dsolid.words, first, K, C, MS, device, sync,
@@ -2399,7 +2885,7 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         def fn(solid):
             cor = runtime.make_corrector(solid, a.corrections, a.confirm,
                                          a.max_search, device=device)
-            inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+            inst.update(instrument(cor))
             return cor
         return fn
 
@@ -2422,16 +2908,22 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
         f"host Counter (phase 3)")
     retry = inst["retry"]
     check(bool(retry), "the main path retried no chunk on the wide sibling")
-    # K11's launches by chunk size: one unpack and one pack a chunk, the
-    # wide sibling's (one a retry chunk) at 2^18, the rest at 2^20
-    wide, k11 = len(retry), ("unpack_codes", "pack_codes")
-    check(launches["unpack_codes"] == launches["pack_codes"] > wide,
-          f"K11 on the main path: {launches['unpack_codes']} unpacks, "
-          f"{launches['pack_codes']} packs, {wide} wide chunks")
-    launches_2e18 = dict.fromkeys(k11, wide)
-    launches_2e20 = {n: launches[n] - wide for n in k11}
+    check_launches("main path", launches, inst, args.corrections)
+    # K11's launches by chunk size: one unpack and one pack a group, the
+    # wide sibling's (groups of 2^18 chunks) apart from the rest (2^20)
+    k11 = ("unpack_codes", "pack_codes")
+    launches_2e18 = dict.fromkeys(k11, inst["groups"]["wide"][0])
+    launches_2e20 = dict.fromkeys(k11, inst["groups"]["default"][0])
     log("main path K11 launches by chunk size: " + json.dumps(
         {"2^20": launches_2e20, "2^18": launches_2e18}))
+    with open(out, "rb") as fh:
+        nc_sweep(args, solid, fh.read(), corrector, device, sync)
+    group_checks(dsolid.words, group3, K, C, MS, device, sync,
+                 GROUP_LABEL[K], checks)
+    group_checks(dsolid.words, planner._group_arrays(seqs, plans), K, C, MS,
+                 device, sync, f"first batch of {len(plans)}", checks,
+                 plain=False, into=GROUP_LABEL[K])
+    path_groups(corrector.table, inst, K, device, sync, checks, ("wide",))
     checks.update(kernel_checks(corrector.table, retry[0], K, C, MS, device,
                                 sync, kind="retry", baseline=baseline))
     lw_table, lw_chunk = long_walk_chunk(device)
@@ -2461,10 +2953,12 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
                  "reverse_slots", "solid_count", "solid_pack",
                  "unpack_codes", "pack_codes"):
         check(launches1[name] > 0, f"-c one: kernel {name} not launched")
+    check_launches("-c one", launches1, inst, ["one"])
     check(st1["fallback"] / max(1, st1["total"]) <= MAX_FALLBACK,
           f"-c one: {st1['fallback']} of {st1['total']} reads to the host")
     oracle_check("-c one", out1, seqs[:N_ONE], ["one"], solid1,
                  one.last_host)
+    busy_solid = solid   # phase 5's set, for nc_busy at the end
     del planner, dsolid, solid, corrector, solid1, one
     torch.cuda.empty_cache()
 
@@ -2486,6 +2980,9 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
     log(f"phase clock: the CLI at {time.perf_counter() - T0:.0f} s")
     with open(out, "rb") as fh:
         cli_phase(workdir, fa, fh.read(), launches)
+    log(f"phase clock: the NC sweep's busy shares at "
+        f"{time.perf_counter() - T0:.0f} s")
+    nc_busy(args, busy_solid, device, sync, main["stats"]["chunks"])
     log(f"phase clock: done at {time.perf_counter() - T0:.0f} s")
     checks.update(checks_m)
     # the launches of a kernel's summary entry: K9's on the large-k path,
@@ -2504,7 +3001,16 @@ def main_path(workdir, device, sync, card, build, base_dir=None):
                              (name + "[k=17]", launches17, name),
                              (name + "_h", launches_l, name + "_h"),
                              (name + "[u8]", launches_u8, name),
-                             (name + "[2^18]", launches_2e18, name)):
+                             (name + "[2^18]", launches_2e18, name),
+                             (f"{name}[{GROUP_LABEL[K]}]", launches, name),
+                             (f"{name}64[{GROUP_LABEL[17]}]", launches17,
+                              name + "64"),
+                             (f"{name}[{GROUP_LABEL[17]}]", launches17,
+                              name),
+                             (f"{name}_h[{GROUP_LABEL[K_LARGE]}]",
+                              launches_l, name + "_h"),
+                             (f"{name}[{GROUP_LABEL[K_LARGE]}]",
+                              launches_l, name)):
             if nm not in checks:
                 continue
             r = checks[nm]
@@ -2563,7 +3069,7 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
     def make(solid):
         cor = runtime.make_corrector(solid, args.corrections, args.confirm,
                                      args.max_search, device=device)
-        inst["kept"], inst["oracle_s"], inst["retry"] = instrument(cor)
+        inst.update(instrument(cor))
         return cor
 
     k8_times = {}
@@ -2583,11 +3089,16 @@ def k17_path(workdir, fa, seqs, n_bases, device, sync, card,
         "table_bytes": solid.words.numel() * 4,
         "count_partition_bytes": db.partition_size(
             k, w, db.DEFAULT_MAX_COUNT_BYTES) * w // 8}))
+    check_launches("k=17 path", launches, inst, args.corrections,
+                   sfx="64")
     idxs, starts = corrector._plan(seqs[:N17], set(), set())[0]
     first = corrector._chunk_arrays(seqs[:N17], idxs, starts)
     checks.update(kernel_checks(corrector.table, first, k, C, MS, device,
                                 sync, plain_reps=0, full=False,
                                 baseline=baseline))
+    group_checks(corrector.table, small_group(corrector, seqs[:N17]), k, C,
+                 MS, device, sync, GROUP_LABEL[k], checks)
+    path_groups(corrector.table, inst, k, device, sync, checks)
     check(bool(inst["retry"]), "the k=17 path retried no chunk")
     checks.update(kernel_checks(corrector.table, inst["retry"][0], k, C, MS,
                                 device, sync, kind="retry", plain_reps=0,

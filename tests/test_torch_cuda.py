@@ -1052,7 +1052,8 @@ def test_solid_sharded_on_card_matches_single(dev, k, a):
 def test_sharded_corrector_on_card_matches_single(dev):
     """The default chain through a corrector with a mesh of 3 shards
     (a chunk count 3 does not divide) equals the one-device corrector and
-    the oracle, with equal last_stats, and launches K11 every chunk."""
+    the oracle, with equal last_stats, and launches K11 every group of a
+    shard's chunks."""
     rng = np.random.default_rng(3)
     genome = tc.repeat_rich_genome(rng)
     reads = tc.fuzz_reads(rng, genome, 60, 5)
@@ -1068,7 +1069,10 @@ def test_sharded_corrector_on_card_matches_single(dev):
     got = sharded.correct_batch(reads, False)
     assert got == want and sharded.last_stats == single.last_stats
     chunks = sharded.last_stats["chunks"]
-    assert chunks % 3 and kernels.LAUNCHES["unpack_codes"] >= chunks
+    # a group of at most NC_MAX chunks a shard: K11a once a group
+    groups = sum(-(-len(range(d, chunks, 3)) // sharded.NC_MAX)
+                 for d in range(3))
+    assert chunks % 3 and kernels.LAUNCHES["unpack_codes"] >= groups
     methods = build_methods(FULL, solid, tc.C, tc.MS)
     assert got == [correct_read(r, methods, False) for r in reads]
 
@@ -1134,3 +1138,194 @@ def test_two_processes_on_card_match_one(dev, tmp_path):
     want = single.read_bytes()
     assert (tmp_path / "striped.fa").read_bytes() == want
     assert (tmp_path / "ranged.fa").read_bytes() == want
+
+
+# ---------------------------------------------------------------------------
+# The chunk-batched chain: every chain kernel on a group of NC chunks in one
+# launch (chunk blockIdx.y), against its plain version on each chunk.
+# ---------------------------------------------------------------------------
+
+BATCH_SITES = ["one", "two", "graph", "gap-size", "graph-wide",
+               "gap-size-wide", "greedy"]
+#: the chunks of a group of NC, by family name ("empty": no reads)
+BATCH_GROUPS = {1: ["long_walk"], 2: ["mixed", "empty"],
+                3: ["long_walk", "empty", "mixed"]}
+
+
+def _batch_instance(dev, inst):
+    """(k, kmer_cases families, device table) of an instantiation: the
+    bitfield at k = 13 (32-bit), at k = 17 (64-bit), a HashSet's sorted
+    table at k = 21 (_h)."""
+    if inst == "h":
+        cases, _ = _hash_case(21)
+        return 21, cases, _sorted(dev, 21)
+    k = {"32": 13, "64": tc.K17}[inst]
+    cases = tc.kmer_cases(k, 1300) if k == 13 else tc.k17_cases()
+    return k, cases, SolidSet.from_sequences(cases["mixed"][0],
+                                             k).device_words(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_cached(inst):
+    return _batch_instance(torch.device("cuda"), inst)
+
+
+def _group_on(dev, cases, names):
+    rng = np.random.default_rng(len(names))
+    chunks = []
+    for n in names:
+        if n == "empty":   # every slot unused, stale codes
+            chunks.append((rng.integers(0, 4, tc.CHUNK, dtype=np.uint8),
+                           np.full(tc.R, tc.CHUNK, np.int32),
+                           np.zeros(tc.R, np.int32)))
+        else:
+            chunks.append(cases[n][1:])
+    return [torch.from_numpy(np.stack([ch[j] for ch in chunks])).to(dev)
+            for j in range(3)]
+
+
+@pytest.mark.parametrize("strategy", BATCH_SITES)
+@pytest.mark.parametrize("nc", [1, 2, 3])
+@pytest.mark.parametrize("inst", ["32", "64", "h"])
+def test_batched_kernels_match_plain(dev, inst, nc, strategy):
+    """K1, the strategy's site kernel, K3 on its records and K4 on K3's
+    output, each launched once on a group of NC chunks (one empty at
+    NC >= 2), against the plain version on each chunk; the batched pass
+    against the one-chunk pass on each chunk."""
+    k, cases, table = _batch_cached(inst)
+    codes, rs, rl = _group_on(dev, cases, BATCH_GROUPS[nc])
+    NS = site_capacity(tc.CHUNK)
+    sfx = {"32": "", "64": "64", "h": "_h"}[inst]
+    before = dict(kernels.LAUNCHES)
+    d = probe.dense_probe(table, codes, rs, rl, k, NS)
+    dp = kernels.each_chunk(probe.dense_probe_plain, (table,),
+                            (codes, rs, rl), (k, NS))
+    _same(d, dp)
+    assert d.kmers.shape == (nc, tc.CHUNK) and d.n_sites.shape == (nc, 1)
+    args = (table, codes, dp.kmers, dp.s_pos, dp.n_sites, rs, rl, k)
+    st = strategy.replace("-wide", "")
+    if st in ("one", "two"):
+        kname = f"{st}_sites"
+        fns = ((sites.one_sites, sites.one_sites_plain) if st == "one"
+               else (two.two_sites, two.two_sites_plain))
+        extra = (tc.C,)
+    elif st == "greedy":
+        kname, fns, extra = "greedy_sites", (
+            greedy.greedy_sites, greedy.greedy_sites_plain), (tc.MS, tc.C)
+    else:
+        wm = WIDE_WALK_MAX if strategy.endswith("-wide") else 248
+        kname, fns = "walk_sites", (walk.walk_sites, walk.walk_sites_plain)
+        args = (table, codes, dp.kmers, dp.V, *args[3:])
+        extra = (tc.C, st, wm)
+    s = fns[0](*args, *extra)
+    sp = kernels.each_chunk(fns[1], args[:1], args[1:-1], (k, *extra))
+    _same(sites.defined(s), sites.defined(sp))
+    x_args = (codes, rs, rl, dp.s_pos, dp.n_sites, sp, dp.cap_read)
+    x = splice.chain_splice(*x_args)
+    xp = kernels.each_chunk(splice.chain_splice_plain, (), x_args)
+    _same(x, xp)
+    _same(splice.chain_splice(*x_args[:5], s, dp.cap_read), xp)
+    r = reverse.reverse_slots(xp.out, rs, xp.out_len)
+    _same((r,), (kernels.each_chunk(reverse.reverse_slots_plain, (),
+                                    (xp.out, rs, xp.out_len)),))
+    torch.cuda.synchronize()
+    for name, n in ((f"dense_probe{sfx}", 1), (f"{kname}{sfx}", 1),
+                    ("chain_splice", 4), ("reverse_slots", 1)):
+        assert kernels.LAUNCHES[name] == before[name] + n, name
+    if nc > 1:   # the empty chunk: no sites, zeros out
+        e = BATCH_GROUPS[nc].index("empty")
+        assert int(d.n_sites[e, 0]) == 0 and not bool(x.out[e].any())
+        assert not bool(x.aux[e].any())
+    wm = WIDE_WALK_MAX if strategy.endswith("-wide") else 248
+    fn = make_pass3_fn(k, st, tc.C, tc.MS, tc.C, tc.CHUNK, tc.R,
+                       walk_max=wm, batch=True)
+    one = make_pass3_fn(k, st, tc.C, tc.MS, tc.C, tc.CHUNK, tc.R,
+                        walk_max=wm)
+    got = fn(table, codes, rs, rl)
+    for c in range(nc):
+        _same([t[c] for t in got], one(table, codes[c], rs[c], rl[c]))
+
+
+def test_pack_codes_on_a_group(dev):
+    """K11a and K11b once on a group of 3 x 2^20 codes (every byte value,
+    bits above the code stripped by the pack), against their plain
+    versions and against one launch a chunk."""
+    n = 1 << 20
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(0, 256, (3, n), dtype=np.uint8))
+    packed = torch.from_numpy(rng.integers(0, 256, (3, n // 4),
+                                           dtype=np.uint8))
+    cd, pd = codes.to(dev), packed.to(dev)
+    before = (kernels.LAUNCHES["pack_codes"],
+              kernels.LAUNCHES["unpack_codes"])
+    got_p, got_c = dc.pack_codes(cd), dc.unpack_codes(pd, n)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["pack_codes"],
+            kernels.LAUNCHES["unpack_codes"]) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert got_p.shape == (3, n // 4) and got_c.shape == (3, n)
+    assert torch.equal(got_p.cpu(), dc.pack_codes_plain(codes))
+    assert torch.equal(got_c.cpu(), dc.unpack_codes_plain(packed, n))
+    for c in range(3):
+        assert torch.equal(got_p[c], dc.pack_codes(cd[c]))
+        assert torch.equal(got_c[c], dc.unpack_codes(pd[c], n))
+
+
+def _nc_corrector(solid, nc, chunk=1 << 12, nreads=8):
+    cor = Torch3Corrector(solid, FULL, tc.C, tc.MS, chunk=chunk,
+                          nreads=nreads)
+    cor.NC_MAX = nc
+    return cor
+
+
+def _groups(chunks, nc):
+    return -(-chunks // nc)
+
+
+@pytest.mark.parametrize("k", [13, 17, 21])
+def test_batched_corrector_on_card_matches_nc1(dev, k):
+    """The default chain at NC_MAX = 3 (groups of 3 chunks, the last
+    short) on the card equals NC_MAX = 1's output and last_stats and the
+    oracle, at k = 13 (bitfield), 17 (bitfield, 64-bit) and 21 (HashSet);
+    K11a and K3 launch once a group."""
+    rng = np.random.default_rng(k)
+    genome = tc.repeat_rich_genome(rng, k=k)
+    reads = tc.fuzz_reads(rng, genome, 50, 5, k=k)
+    solid = (HashSet.from_sequences([genome], k) if k == 21
+             else SolidSet.from_sequences([genome], k))
+    cor1 = _nc_corrector(solid, 1)
+    got1 = cor1.correct_batch(reads, False)
+    cor3 = _nc_corrector(solid, 3)
+    kernels.reset_launches()
+    got3 = cor3.correct_batch(reads, False)
+    torch.cuda.synchronize()
+    assert got3 == got1
+    assert cor3.last_stats == cor1.last_stats
+    chunks = cor3.last_stats["chunks"]
+    wide = (cor3._wide.last_stats.get("chunks", 0)
+            if cor3.last_stats["wide_retried"] else 0)
+    groups = _groups(chunks, 3) + _groups(wide, 3)
+    assert chunks >= 4 and chunks % 3
+    assert kernels.LAUNCHES["unpack_codes"] == groups
+    sfx = {13: "", 17: "64", 21: "_h"}[k]
+    assert kernels.LAUNCHES["dense_probe" + sfx] == 2 * len(FULL) * groups
+    assert kernels.LAUNCHES["chain_splice"] == 4 * len(FULL) * groups
+    methods = build_methods(FULL, solid, tc.C, tc.MS)
+    assert got3 == [correct_read(r, methods, False) for r in reads]
+
+
+def test_warmup_on_card(dev):
+    """``warmup`` loads every library of the corrector's instantiation
+    and the native engine; the next batch's output is unchanged."""
+    rng = np.random.default_rng(5)
+    genome = tc.repeat_rich_genome(rng)
+    reads = tc.fuzz_reads(rng, genome, 40, 5)
+    solid = SolidSet.from_sequences([genome], tc.K)
+    want = _nc_corrector(solid, 1).correct_batch(reads, False)
+    cor = _nc_corrector(solid, 4)
+    cor.warmup(False, nc=4)
+    assert cor._engine is not None
+    for name in ("dense_probe", "walk_sites", "chain_splice",
+                 "unpack_codes"):
+        assert kernels.KERNELS[name][0] in kernels._LIBS
+    assert cor.correct_batch(reads, False) == want

@@ -41,7 +41,12 @@ reads of ``hash_cases(k)`` and their genome's ``HashSet``, br_tpu's
 oracle output with the default chain, both two_side values, and at
 k = 21 br_tpu's ``Tpu2Corrector`` output too (name ``hash_k<k>``; the
 oracle takes seconds, the large-k engine tens of minutes and tens of GB
-of host memory).
+of host memory).  br_tpu's batched pass (``make_pass3_fn(batch=True)``,
+vmapped over chunks) on ``batch_stack``, three chunks of one genome
+against its one bitfield, is ``record_batch``; it is not recorded: run
+eagerly, JAX compiles every vmapped while loop as a program of its own,
+past 14 GB of host memory for ``one`` (and hung after 37 minutes at
+XLA's optimisation level 0), so the slow tier runs it live.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_cases.py \
         [strategy ... two_stress greedy_rewind one_k17 ... hash_k21 ...]
@@ -244,10 +249,12 @@ def pieces_of(g):
 
 
 def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True,
-                     ms=MS, k=K):
+                     ms=MS, k=K, batch=False):
     """Run br_tpu's pass of ``strategy`` on every case, eagerly unless
     ``eager`` is False (then it compiles for many minutes).  Cases with
-    the same genome share one bitfield (1 GiB at k = 17)."""
+    the same genome share one bitfield (1 GiB at k = 17).  With
+    ``batch``, br_tpu's batched pass on cases whose arrays are stacks of
+    chunks ((NC, CHUNK) codes, (NC, R) slot tables)."""
     import contextlib
 
     import jax
@@ -256,7 +263,7 @@ def jax_pass_outputs(cases, strategy="one", walk_max=None, eager=True,
     from br_tpu.set.solid import SolidSet
 
     kw = {} if walk_max is None else {"walk_max": walk_max}
-    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, **kw)
+    fn = make_pass3_fn(k, strategy, C, ms, C, CHUNK, R, batch=batch, **kw)
     outs, tables = {}, {}
     for name, (g, codes, rstart, rlen) in cases.items():
         key = tuple(pieces_of(g))
@@ -1108,6 +1115,27 @@ def record_k17(strategy):
             {"mixed": cases["mixed"]}, strategy, ms=MS17[1],
             k=K17)["mixed"]
     return outs
+
+
+def batch_stack():
+    """One stack of three chunks over one genome (the pieces of
+    ``kmer_cases(K, 1313)``): its ``mixed`` and ``long_walk`` chunks and a
+    chunk of six fuzz reads of the chimeras' piece, most of its slots
+    unused.  Returns (pieces, codes (3, CHUNK), rstart (3, R), rlen (3,
+    R))."""
+    cases = kmer_cases(K, 1313)
+    rng = np.random.default_rng(1314)
+    pieces = cases["mixed"][0]
+    third = pack(fuzz_reads(rng, pieces[2], 6, 4), rng=rng)
+    chunks = [cases["mixed"][1:], cases["long_walk"][1:], third]
+    return (pieces, *(np.stack([ch[j] for ch in chunks]) for j in range(3)))
+
+
+def record_batch(strategy, walk_max=None):
+    """br_tpu's batched pass of ``strategy`` on ``batch_stack``: numpy
+    (out, out_len, cap, aux), each with a leading chunk axis."""
+    return jax_pass_outputs({"batch": batch_stack()}, strategy,
+                            walk_max=walk_max, batch=True)["batch"]
 
 
 def record_greedy_rewind():
